@@ -28,6 +28,8 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 #: kernel name -> its CUDA source
 SOURCES: dict[str, Path] = {
     "stack_rois": _KERNELS_DIR / "stacking" / "csrc" / "stack_rois.cu",
+    "flash_attention": (_KERNELS_DIR / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,16 @@
+"""The LM substrate of the port: configuration schema, the dense decoder
+and its step builders (counterpart of ``repro.models``)."""
+from .config import LayerSpec, ModelConfig
+from .model import make_forward, make_prefill, make_serve_step
+from .transformer import init_cache, init_params, param_defs
+
+__all__ = [
+    "LayerSpec",
+    "ModelConfig",
+    "init_cache",
+    "init_params",
+    "make_forward",
+    "make_prefill",
+    "make_serve_step",
+    "param_defs",
+]

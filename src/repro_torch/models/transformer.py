@@ -1,0 +1,303 @@
+"""The patterned decoder of the LM-family architectures, dense branch.
+
+The port of the reference's ``repro.models.transformer``.  Parameters are
+the reference's nested dict with the same leaf names, shapes and dtypes:
+per-block leaves keep their leading ``n_blocks`` dim, so a JAX parameter
+tree converts leaf for leaf (``repro_torch.convert.params_from_jax``).  The
+reference's ``lax.scan`` over blocks is a Python loop over layers, each
+reading its slice of the stacked leaves (a view, no copy).
+
+Left out, each for its slice (``ROADMAP.md``): mamba sub-layers, MoE MLPs,
+the encoder-decoder and its learned positions, the vision splice, remat and
+the gradient barrier (no backward yet), logical sharding axes,
+``forward_lm_hidden`` and ``abstract_params``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from . import layers as L
+from .config import LayerSpec, ModelConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name."""
+    return _DTYPES[name]
+
+
+class ParamDef(NamedTuple):
+    shape: tuple[int, ...]
+    init: str = "normal"      # normal | zeros | ones
+    dtype: str = "param"      # param (cfg.dtype) | float32
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+def _attn_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    return {
+        "wq": ParamDef((D, H, dh)),
+        "wk": ParamDef((D, KV, dh)),
+        "wv": ParamDef((D, KV, dh)),
+        "wo": ParamDef((H, dh, D)),
+    }
+
+
+def _mlp_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    D, F = cfg.d_model, cfg.d_ff
+    defs = {"w_up": ParamDef((D, F)), "w_down": ParamDef((F, D))}
+    if cfg.gated_mlp:
+        defs["w_gate"] = ParamDef((D, F))
+    return defs
+
+
+def _norm_defs(cfg: ModelConfig, name: str) -> dict[str, ParamDef]:
+    D = cfg.d_model
+    if cfg.norm == "layer":
+        return {f"{name}_scale": ParamDef((D,), "ones", "float32"),
+                f"{name}_bias": ParamDef((D,), "zeros", "float32")}
+    init = "zeros" if cfg.rms_plus_one else "ones"
+    return {f"{name}_scale": ParamDef((D,), init, "float32")}
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder comes with the encdec slice")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend comes with the "
+            f"vision slice")
+    if not cfg.use_rope and cfg.max_learned_pos > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: learned positions (pos_embed) come with the "
+            f"encdec slice")
+    for spec in cfg.pattern:
+        if spec.kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: {spec.kind} sub-layers come with the SSM slice")
+        if spec.mlp == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE sub-layers come with the MoE slice")
+
+
+def _sub_defs(cfg: ModelConfig, spec: LayerSpec) -> dict[str, ParamDef]:
+    defs: dict[str, ParamDef] = {}
+    defs.update(_norm_defs(cfg, "ln1"))
+    defs.update(_attn_defs(cfg))
+    if cfg.post_norms:
+        defs.update(_norm_defs(cfg, "post_ln1"))
+    if spec.mlp == "dense":
+        defs.update(_norm_defs(cfg, "ln2"))
+        defs.update(_mlp_defs(cfg))
+    if cfg.post_norms and spec.mlp != "none":
+        defs.update(_norm_defs(cfg, "post_ln2"))
+    return defs
+
+
+def _stack(defs: dict[str, ParamDef], n: int) -> dict[str, ParamDef]:
+    return {k: ParamDef((n,) + d.shape, d.init, d.dtype)
+            for k, d in defs.items()}
+
+
+def param_defs(cfg: ModelConfig) -> dict[str, Any]:
+    """The reference's parameter tree (dense configs), as ParamDefs."""
+    _check_dense(cfg)
+    V, D = cfg.vocab_size, cfg.d_model
+    defs: dict[str, Any] = {
+        "embed": ParamDef((V, D)),
+        "blocks": {f"sub{i}": _stack(_sub_defs(cfg, spec), cfg.n_blocks)
+                   for i, spec in enumerate(cfg.pattern)},
+    }
+    defs.update(_norm_defs(cfg, "final"))
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((V, D))
+    return defs
+
+
+def flatten(tree: dict, prefix: str = "") -> list[tuple[str, Any]]:
+    """``(path, leaf)`` pairs of a nested dict in sorted-key order (the
+    order ``jax.tree.flatten`` visits a dict), paths joined by ``/``."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.extend(flatten(v, path))
+        else:
+            out.append((path, v))
+    return out
+
+
+def unflatten(pairs) -> dict:
+    """Inverse of :func:`flatten`."""
+    tree: dict = {}
+    for path, leaf in pairs:
+        node = tree
+        *parents, name = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return tree
+
+
+def _materialize(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    dtype = torch.float32 if d.dtype == "float32" else torch_dtype(cfg.dtype)
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return w.mul_(scale).to(dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: str | torch.device = "cuda") -> dict:
+    """Random weights at the config's widths, by the reference's rules:
+    ``normal · 1/√fan_in`` (fan_in = the second-to-last dim), zeros and
+    ones for norms, fp32 norms and the rest in ``cfg.dtype``.  Drawn from
+    ``generator`` (on ``device``) leaf by leaf in sorted-path order; the
+    numbers differ from JAX's at the same seed, so a test that needs the
+    reference's weights converts them (``convert.params_from_jax``)."""
+    dev = torch.device(device)
+    return unflatten((path, _materialize(d, cfg, generator, dev))
+                     for path, d in flatten(param_defs(cfg)))
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _norm(cfg: ModelConfig, x, p, name):
+    if cfg.norm == "layer":
+        return L.layer_norm(x, p[f"{name}_scale"], p[f"{name}_bias"])
+    return L.rms_norm(x, p[f"{name}_scale"], plus_one=cfg.rms_plus_one)
+
+
+def _variant(cfg: ModelConfig, spec: LayerSpec,
+             causal: bool = True) -> L.AttnVariant:
+    return L.AttnVariant(kind=spec.attn, window=cfg.window,
+                         softcap=cfg.attn_softcap, causal=causal)
+
+
+def _apply_sub(cfg: ModelConfig, spec: LayerSpec, x, p, positions,
+               causal: bool = True):
+    """One sub-layer (attention + MLP) with residuals."""
+    h = _norm(cfg, x, p, "ln1")
+    h = L.attention_block(h, p, positions, _variant(cfg, spec, causal),
+                          cfg.rope_theta, use_rope=cfg.use_rope,
+                          impl=cfg.attn_impl)
+    if cfg.post_norms:
+        h = _norm(cfg, h, p, "post_ln1")
+    x = x + h
+    if spec.mlp != "none":
+        h = _norm(cfg, x, p, "ln2")
+        h = L.mlp_block(h, p, cfg.mlp_act)
+        if cfg.post_norms:
+            h = _norm(cfg, h, p, "post_ln2")
+        x = x + h
+    return x
+
+
+def _layer(block: dict, i: int) -> dict:
+    """Block ``i``'s parameters: views into the stacked leaves."""
+    return {k: v[i] for k, v in block.items()}
+
+
+def _blocks(cfg: ModelConfig, x, blocks: dict, positions):
+    for i in range(cfg.n_blocks):
+        for j, spec in enumerate(cfg.pattern):
+            x = _apply_sub(cfg, spec, x, _layer(blocks[f"sub{j}"], i),
+                           positions)
+    return x
+
+
+def embed_inputs(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
+    """tokens -> (B, S, D) residual stream."""
+    return L.embed(batch["tokens"], params["embed"], cfg.embed_scale)
+
+
+def _unembed(cfg: ModelConfig, params, x) -> torch.Tensor:
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.unembed(x, table, cfg.final_softcap)
+
+
+def forward_lm(cfg: ModelConfig, params, tokens: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B,S,V) fp32, aux scalar).  The aux loss is
+    the MoE router's; a dense model's is 0."""
+    x = embed_inputs(cfg, params, {"tokens": tokens})
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _blocks(cfg, x, params["blocks"], positions)
+    x = _norm(cfg, x, params, "final")
+    return _unembed(cfg, params, x), torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# KV cache + single-token decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype: Optional[str] = None,
+               device: str | torch.device = "cuda") -> dict:
+    """The reference's cache tree: ``{"sub<i>": {"k", "v"}}``, each
+    (n_blocks, batch, S_cache, KV, Dh) zeros, S_cache = min(window, seq_len)
+    on SWA layers."""
+    _check_dense(cfg)
+    dt = torch_dtype(dtype or cfg.dtype)
+    nb, KV, dh = cfg.n_blocks, cfg.n_kv_heads, cfg.head_dim_
+    cache: dict[str, Any] = {}
+    for i, spec in enumerate(cfg.pattern):
+        sc = cfg.kv_cache_len(spec, seq_len)
+        cache[f"sub{i}"] = {
+            "k": torch.zeros((nb, batch, sc, KV, dh), dtype=dt, device=device),
+            "v": torch.zeros((nb, batch, sc, KV, dh), dtype=dt, device=device),
+        }
+    return cache
+
+
+def decode_step_lm(cfg: ModelConfig, params, cache, token: torch.Tensor,
+                   pos: int) -> tuple[torch.Tensor, Any]:
+    """One-token serve step: token (B, 1) at absolute position ``pos`` (a
+    host integer).  Returns (logits (B,1,V), cache); the cache is updated
+    in place."""
+    x = L.embed(token, params["embed"], cfg.embed_scale)
+    for i in range(cfg.n_blocks):
+        for j, spec in enumerate(cfg.pattern):
+            c = cache[f"sub{j}"]
+            p = _layer(params["blocks"][f"sub{j}"], i)
+            x = _decode_sub(cfg, spec, x, p, c["k"][i], c["v"][i], pos)
+    x = _norm(cfg, x, params, "final")
+    return _unembed(cfg, params, x), cache
+
+
+def _decode_sub(cfg: ModelConfig, spec: LayerSpec, x, p, cache_k, cache_v,
+                pos: int):
+    """One sub-layer of the decode step (the reference's scan body), with
+    this layer's cache slices updated in place."""
+    h = _norm(cfg, x, p, "ln1")
+    h, _, _ = L.attention_decode(h, p, cache_k, cache_v, pos,
+                                 _variant(cfg, spec), cfg.rope_theta,
+                                 use_rope=cfg.use_rope)
+    if cfg.post_norms:
+        h = _norm(cfg, h, p, "post_ln1")
+    x = x + h
+    if spec.mlp != "none":
+        h = _norm(cfg, x, p, "ln2")
+        h = L.mlp_block(h, p, cfg.mlp_act)
+        if cfg.post_norms:
+            h = _norm(cfg, h, p, "post_ln2")
+        x = x + h
+    return x

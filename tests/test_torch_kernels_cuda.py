@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.stacking import ops, stacking
 from repro_torch.kernels.stacking.ref import stack_rois_ref
 
@@ -25,6 +28,9 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's kernels are CUDA C++ "
                     "with no CPU mode")
+    # the plain versions' fp32 products must be full fp32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -82,3 +88,123 @@ def test_flat_path_launches_once_per_task(cuda):
             assert all(p.device == cuda for p in w.payloads.values())
     finally:
         eng.shutdown()
+
+
+# --------------------------- flash attention ---------------------------------
+
+FA_CASES = [
+    # (B, S, H, KV, D, causal, window, softcap, dtype): the reference's
+    # eight (tests/test_kernels.py), then the serving path's shape, then
+    # widths and lengths the reference does not reach
+    (2, 64, 4, 2, 16, True, 0, 0.0, torch.float32),
+    (1, 128, 8, 2, 32, True, 32, 0.0, torch.float32),
+    (2, 64, 4, 4, 24, True, 0, 50.0, torch.float32),
+    (1, 256, 4, 1, 16, True, 0, 0.0, torch.float32),
+    (2, 96, 4, 2, 16, True, 0, 0.0, torch.float32),
+    (1, 64, 4, 2, 16, False, 0, 0.0, torch.float32),
+    (2, 64, 4, 2, 16, True, 16, 30.0, torch.float32),
+    (2, 64, 8, 8, 16, True, 0, 0.0, torch.bfloat16),
+    (8, 96, 32, 8, 120, True, 4096, 0.0, torch.bfloat16),
+    (1, 100, 4, 2, 120, True, 0, 0.0, torch.float32),
+    (1, 77, 2, 1, 256, False, 0, 0.0, torch.float32),
+    (2, 200, 4, 2, 64, True, 50, 30.0, torch.bfloat16),
+    (1, 300, 2, 2, 1, False, 70, 0.0, torch.float32),
+]
+
+
+def _fa_inputs(b, s, h, kv, d, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(dev, dtype) for shape in ((b, s, h, d), (b, s, kv, d),
+                                          (b, s, kv, d))]
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window,softcap,dtype", FA_CASES)
+def test_flash_kernel_matches_plain(cuda, B, S, H, KV, D, causal, window,
+                                    softcap, dtype):
+    q, k, v = _fa_inputs(B, S, H, KV, D, dtype, cuda, seed=S + D)
+    before = fa.launches.value
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa.launches.value == before + 1
+    assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=causal, window=window,
+                         softcap=softcap).transpose(1, 2)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_rows_without_a_valid_key_are_zero(cuda):
+    """Sq > Sk under a causal window: rows q >= Sk + window - 1 see no key."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda)
+               for s in ((1, 4, 130, 40), (1, 2, 40, 40), (1, 2, 40, 40)))
+    got = fa.flash_attention_fwd(q, k, v, causal=True, window=16)
+    want = attention_ref(q, k, v, causal=True, window=16)
+    torch.cuda.synchronize()
+    assert bool((want[:, :, 55:] == 0).all())
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_kernel_q_chunked_plain_version_agrees(cuda):
+    q, k, v = _fa_inputs(1, 1000, 4, 2, 120, torch.bfloat16, cuda, seed=9)
+    args = [t.transpose(1, 2) for t in (q, k, v)]
+    whole = attention_ref(*args, causal=True, window=300)
+    chunked = attention_ref(*args, causal=True, window=300, q_chunk=256)
+    got = fa.flash_attention_fwd(*args, causal=True, window=300)
+    torch.testing.assert_close(chunked, whole, atol=0, rtol=0)
+    torch.testing.assert_close(got.float(), whole.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _fa_inputs(1, 8, 2, 1, 16, torch.float32, cuda)
+    args = [t.transpose(1, 2) for t in (q, k, v)]
+    with pytest.raises(ValueError, match="k is on cpu"):
+        fa.flash_attention_fwd(args[0], args[1].cpu(), args[2])
+    with pytest.raises(TypeError, match="float16"):
+        fa.flash_attention_fwd(*(t.half() for t in args))
+    big = torch.zeros(1, 2, 8, 264, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(big, big[:, :1], big[:, :1])
+
+
+def test_serve_forward_launches_flash_once_per_layer(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_forward
+
+    cfg = get_config("h2o-danube-3-4b").reduced().with_(attn_impl="flash")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda)
+    before = fa.launches.value
+    logits, _ = make_forward(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert fa.launches.value - before == cfg.n_layers
+    ref, _ = make_forward(cfg.with_(attn_impl="ref"))(params,
+                                                      {"tokens": tokens})
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(logits, ref, atol=2e-2 * scale, rtol=0)
+
+
+def test_serve_engine_forward_matches_decode_replay(cuda):
+    """The launcher's traffic on reduced h2o-danube-3-4b in fp32 on the
+    card: one flash launch per layer per wave, and each wave's forward
+    logits equal the decode replay's at every request's last prompt
+    position (at full width the random weights are too sharp for an end
+    to end comparison; here they are not)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+
+    cfg = get_config("h2o-danube-3-4b").reduced().with_(
+        attn_impl="flash", dtype="float32")
+    before = fa.launches.value
+    eng, done = launch.serve(cfg, 16, 2, "max-compute-util", 4, 0, cuda)
+    torch.cuda.synchronize()
+    assert fa.launches.value - before == cfg.n_layers * len(eng.waves) == 4
+    assert all(len(r.output) == 4 for r in done)
+    for w in eng.waves:
+        scale = float(w.prefill_logits.abs().max())
+        torch.testing.assert_close(w.replay_logits, w.prefill_logits,
+                                   atol=1e-4 * scale, rtol=1e-4)
