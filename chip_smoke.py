@@ -30,11 +30,24 @@ Phases, each reported on its own lines:
      wave's forward logits against the decode replay's, and the whole
      forward under each attention, are reported: with these random weights
      attention scores reach about 1e3 with near ties, so end to end any
-     rounding difference flips a winner somewhere and the logits part.
+     rounding difference flips a winner somewhere and the logits part;
+  6. serving falcon-mamba-7b at its published widths in bf16 (random
+     weights from a seeded torch.Generator) through the same launcher code
+     path and traffic.  The selective-scan kernel must launch once per
+     layer per wave (128 times); on the last wave's tokens every layer's
+     mamba block is held, kernel against the plain chunked scan, on the
+     kernel forward's own hidden states (within 2e-2 of max|output|).
+     Each wave's forward logits against the decode replay's, and the whole
+     forward under each scan, are reported: in bf16 the 64 random layers
+     amplify one-ulp differences until the logits part.  The last wave
+     again with the weights in fp32 holds both comparisons within 2e-2 of
+     max|logit|.
 
 Phase 2 runs the flash-attention kernel at the reference's eight test
 cases, the serving forward's shape and a long prefill, with
-``scaled_dot_product_attention`` timed beside it as a yardstick only.
+``scaled_dot_product_attention`` timed beside it as a yardstick only; and
+the selective-scan kernel at the reference's four test cases, a chained
+pair of halves, the serving forward's shape and a long prefill.
 fp32 products on the card run in full fp32: TF32 is switched off for
 matmuls and cuDNN before anything runs.
 
@@ -64,6 +77,9 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+#: fp32 exp on the special-function units: 16 results per clock per SM,
+#: 132 SMs at the 1.98 GHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 FLAT_TASKS, FLAT_LOCALITY, FLAT_HOSTS = 46_480, 10, 64   # Table 2, ANL/UC
 CHECKED_TASKS = 64
@@ -74,8 +90,11 @@ STACKING_SOURCE = "src/repro_torch/kernels/stacking/csrc/stack_rois.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/flash_attention.py:35"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
+MAMBA_TPU_KERNEL = "src/repro/kernels/mamba_scan/mamba_scan.py:29"
+MAMBA_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
 
 SERVE_ARCH, SERVE_REQUESTS, SERVE_REPLICAS = "h2o-danube-3-4b", 16, 2
+SSM_ARCH = "falcon-mamba-7b"
 SERVE_POLICY, SERVE_MAX_NEW, SERVE_SEED = "max-compute-util", 8, 0
 #: flash cases: (label, B, S, H, KV, D, causal, window, softcap, dtype);
 #: the reference's eight (tests/test_kernels.py), then the shapes the
@@ -95,6 +114,22 @@ FLASH_CASES = [
 #: query rows per chunk of the plain version at long lengths (bounds its
 #: (Sq, Sk) score tensor)
 FLASH_PLAIN_Q_CHUNK = 1024
+#: selective-scan cases: (label, B, S, I, N, h0); the reference's four
+#: (tests/test_kernels.py, with its h0 = 0.05), then the shapes the serving
+#: forward gives the kernel at falcon-mamba-7b's widths (no h0): the
+#: launcher's waves (B=8, S=96) and one 4096-token prefill
+MAMBA_CASES = [
+    ("test", 1, 32, 16, 4, True),
+    ("test", 2, 96, 48, 8, True),
+    ("test", 2, 128, 64, 16, True),
+    ("test ragged", 1, 50, 24, 4, True),
+    ("main/serve", 8, 96, 8192, 16, False),
+    ("main/prefill", 1, 4096, 8192, 16, False),
+]
+#: falcon-mamba-7b's dt_rank: Bm and Cm are column slices of a projection
+#: (B, S, DT_RANK + 2N) on the main path
+MAMBA_DT_RANK = 256
+MAMBA_TOL = dict(atol=2e-4, rtol=1e-3)   # the reference's, y and h_last
 
 
 def log(msg: str) -> None:
@@ -212,23 +247,23 @@ def flash_bound(b: int, s: int, h: int, kv: int, d: int, causal: bool,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-#: the Mamba scan (not ported yet) at falcon-mamba-7b's widths: d_inner
-#: 8192 (expand 2 x d_model 4096), state 16, for one 4096-token sequence
-MAMBA_SHAPE = (1, 4096, 8192, 16)
-
-
-def mamba_scan_bound(b: int, s: int, i: int, n: int) -> tuple[float, str]:
-    """Least time (ms) for the TPU's selective scan
-    (src/repro/kernels/mamba_scan/mamba_scan.py:29 _scan_kernel) at
-    (B, S, I, N), all fp32: u, dt, A, Bm, Cm, D, h0 read once and y, h_last
-    written once, over HBM bandwidth; against 7 operations per (t, i, n)
-    (dt·A, exp, ·h, +dBu, ·B, ·C, the sum over n) and 3 per (t, i)
-    (dt·u, u·D, the add), over the fp32 peak."""
+def mamba_scan_bound(b: int, s: int, i: int, n: int,
+                     h0: bool = False) -> tuple[float, str]:
+    """Least time (ms) for one selective scan at (B, S, I, N), all fp32:
+    the largest of three terms.  Bytes: u, dt, A, Bm, Cm, D (and h0 where
+    one is given; the forward passes none) read once and y, h_last written
+    once, over HBM bandwidth.  fp32 operations: 6 per (t, i, n) (dt·A, ·h,
+    +dBu, ·B, ·C, the sum over n) and 3 per (t, i) (dt·u, u·D, the add),
+    over the fp32 peak.  exps: one per (t, i, n), B·S·I·N in all, on the
+    special-function units (16 per clock per SM).  At falcon-mamba-7b's
+    widths the exp term is the largest (at the serving shape the bytes
+    come within 1% of it); a polynomial exp on the FMA pipes would ease
+    that term."""
     bytes_moved = 4 * (3 * b * s * i + i * n + 2 * b * s * n + i
-                       + 2 * b * i * n)
-    ops = b * s * i * (7 * n + 3)
+                       + b * i * n * (2 if h0 else 1))
+    ops = b * s * i * (6 * n + 3)
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / FP32_OPS_PER_S, b * s * i * n / SFU_EXP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -410,6 +445,101 @@ def phase_flash_kernel() -> list[dict]:
             f"device: kernel {k_ms * 1e3:.3f} us, plain {p_ms * 1e3:.3f} us, "
             f"sdpa {lib}, bound {bound_ms * 1e3:.3f} us ({bound_by}) | "
             f"eager per call: kernel {k_host * 1e3:.2f} us")
+    return rows
+
+
+def _scan_inputs(b: int, s: int, i: int, n: int, h0: bool, seed: int,
+                 dev) -> dict:
+    """The reference test's distributions on the card: u, dt =
+    softplus(normal), A = -exp(0.5·normal), Bm, Cm, D, h0 = 0.05.  Bm and
+    Cm are column slices of a projection (B, S, DT_RANK + 2N), as the model
+    passes them."""
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    proj = normal(b, s, MAMBA_DT_RANK + 2 * n)
+    arrs = {"u": normal(b, s, i),
+            "dt": torch.nn.functional.softplus(normal(b, s, i)),
+            "A": -torch.exp(normal(i, n) * 0.5),
+            "Bm": proj[..., MAMBA_DT_RANK: MAMBA_DT_RANK + n],
+            "Cm": proj[..., MAMBA_DT_RANK + n:], "D": normal(i)}
+    if h0:
+        arrs["h0"] = torch.full((b, i, n), 0.05, device=dev)
+    return arrs
+
+
+def _scan_err(label: str, got, want) -> float:
+    """Hold y and h_last to the plain version at the reference's
+    tolerance; returns the max abs error."""
+    worst = 0.0
+    for name, g, w in zip(("y", "h_last"), got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"scan {label} {name}: shape "
+                                 f"{tuple(g.shape)} or non-finite values")
+        err = (g - w).abs()
+        worst = max(worst, float(err.max()))
+        if bool((err > MAMBA_TOL["atol"]
+                 + MAMBA_TOL["rtol"] * w.abs()).any()):
+            raise AssertionError(
+                f"scan {label} {name}: kernel disagrees with the plain "
+                f"version (max abs {float(err.max())}, tolerance "
+                f"{MAMBA_TOL})")
+    return worst
+
+
+def phase_mamba_kernel() -> list[dict]:
+    """The selective-scan kernel against its plain version on the card (no
+    single PyTorch call computes a selective scan: no library yardstick)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    for k, (label, b, s, i, n, h0) in enumerate(MAMBA_CASES):
+        arrs = _scan_inputs(b, s, i, n, h0, 300 + k, dev)
+        kernel = lambda: ms_ops.mamba_scan(**arrs)  # noqa: E731
+        plain = lambda: mamba_scan_ref(**arrs)  # noqa: E731
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        max_abs = _scan_err(label, got, want)
+        long = s > 1024
+        k_ms = device_ms(kernel, *((10, 10) if long else (30, 50)))
+        # the plain version is a loop over S: a few repetitions
+        p_ms = device_ms(plain, *((3, 1) if long else (5, 3)))
+        k_host = host_ms(kernel, *((5, 5) if long else (30, 50)))
+        bound_ms, bound_by = mamba_scan_bound(b, s, i, n, h0)
+        rows.append({"case": label, "shape": [b, s, i, n], "h0": h0,
+                     "max_abs_err": max_abs, "tolerance": MAMBA_TOL,
+                     "ms": k_ms, "plain_ms": p_ms, "host_ms": k_host,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+        log(f"[kernel] mamba_scan {label} B={b} S={s} I={i} N={n} "
+            f"h0={h0}: max abs err {max_abs:.3g} (atol 2e-4, rtol 1e-3, y "
+            f"and h_last) | device: kernel {k_ms * 1e3:.3f} us, plain "
+            f"{p_ms * 1e3:.3f} us, bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}) | eager per call: kernel {k_host * 1e3:.2f} us")
+    # state chaining (tests/test_kernels.py): two halves, h_last carried
+    # over as h0, give the whole
+    arrs = _scan_inputs(1, 64, 16, 8, False, 399, dev)
+    halves = [{k: (v[:, sl] if v.dim() == 3 else v) for k, v in arrs.items()}
+              for sl in (slice(0, 32), slice(32, 64))]
+    y_full, h_full = ms.mamba_scan_fwd(**arrs)
+    y1, h1 = ms.mamba_scan_fwd(**halves[0])
+    y2, h2 = ms.mamba_scan_fwd(**halves[1], h0=h1)
+    want = mamba_scan_ref(**arrs)
+    torch.cuda.synchronize()
+    err = max(_scan_err("chained", (torch.cat([y1, y2], 1), h2), want),
+              _scan_err("whole", (y_full, h_full), want))
+    rows.append({"case": "test chained halves", "shape": [1, 64, 16, 8],
+                 "max_abs_err": err})
+    log(f"[kernel] mamba_scan test chained halves B=1 S=64 I=16 N=8: the "
+        f"halves with h_last carried over, and the whole, against the "
+        f"plain version: max abs err {err:.3g}")
+    log("[kernel] mamba_scan: no single PyTorch call computes a selective "
+        "scan, so there is no library yardstick (library_ms null)")
     return rows
 
 
@@ -609,10 +739,28 @@ def _profile_decode(eng, steps: int = 3) -> dict:
                     for e in top]}
 
 
+def _launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+    from repro_torch.kernels.stacking import stacking
+
+    return {"stack_rois": stacking.launches,
+            "flash_attention": fa.launches, "mamba_scan": ms.launches}
+
+
+def _reset_launches() -> None:
+    for counter in _launch_counters().values():
+        counter.reset()
+
+
+def _read_launches() -> dict:
+    return {name: c.value for name, c in _launch_counters().items()}
+
+
 def phase_serve() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.device import describe
-    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.launch import serve as launch
     from repro_torch.models import init_params
     from repro_torch.models.transformer import flatten
@@ -639,14 +787,14 @@ def phase_serve() -> dict:
         f"parameters ({param_bytes / 1e9:.3f} GB in {cfg.dtype}) drawn on "
         f"the card in {init_s:.2f}s; no cut")
     torch.cuda.reset_peak_memory_stats()
-    fa.launches.reset()
+    _reset_launches()
     t0 = time.monotonic()
     eng, done = launch.serve(cfg, SERVE_REQUESTS, SERVE_REPLICAS,
                              SERVE_POLICY, SERVE_MAX_NEW, SERVE_SEED, dev,
                              params=params)
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
-    n_launch = fa.launches.value
+    n_launch = _read_launches()["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
     for line in launch.report(eng, done, SERVE_REPLICAS, SERVE_POLICY):
         log(line)
@@ -778,6 +926,222 @@ def _layer_by_layer(cfg, params, tokens) -> list[dict]:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 6: serving falcon-mamba-7b through the launcher's code path
+# --------------------------------------------------------------------------
+
+def phase_ssm_serve() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.device import describe
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import flatten
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(SSM_ARCH).with_(use_mamba_kernel=True)
+    # phase 5's tensors may sit in reference cycles: free them first
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SERVE_SEED),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    leaves = [t for _, t in flatten(params)]
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"[ssm] {cfg.name} at its published widths: {cfg.n_layers} mamba "
+        f"layers, d_model {cfg.d_model}, d_inner {cfg.d_inner}, state "
+        f"{cfg.ssm_state}, conv {cfg.ssm_conv}, dt_rank {cfg.dt_rank}, vocab "
+        f"{cfg.vocab_size}, untied embeddings; {n_params:,} parameters "
+        f"({param_bytes / 1e9:.3f} GB in {cfg.dtype}) drawn on the card in "
+        f"{init_s:.2f}s; drawing peaked at {init_peak / 2**30:.3f} GiB (each "
+        f"stacked leaf is drawn whole in fp32, then cast); no cut")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.monotonic()
+    eng, done = launch.serve(cfg, SERVE_REQUESTS, SERVE_REPLICAS,
+                             SERVE_POLICY, SERVE_MAX_NEW, SERVE_SEED, dev,
+                             params=params)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    counts = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for line in launch.report(eng, done, SERVE_REPLICAS, SERVE_POLICY):
+        log(line)
+    card = describe(dev)
+    failures = []
+    if len(done) != SERVE_REQUESTS or any(
+            len(r.output) != SERVE_MAX_NEW or
+            not all(0 <= t < cfg.vocab_size for t in r.output)
+            for r in done):
+        failures.append("not every request got its tokens")
+    expected = {"stack_rois": 0, "flash_attention": 0,
+                "mamba_scan": cfg.n_layers * len(eng.waves)}
+    log(f"[ssm] launches {counts} (mamba_scan: layers x waves = "
+        f"{cfg.n_layers} x {len(eng.waves)} = {expected['mamba_scan']})")
+    if counts != expected:
+        failures.append(f"launches {counts}, expected {expected}")
+    waves = []
+    for i, w in enumerate(eng.waves):
+        rel, same = _wave_agreement(w)
+        waves.append({"forward_ms": w.forward_s * 1e3,
+                      "replay_ms_per_step": w.replay_s * 1e3 / w.replay_steps,
+                      "decode_ms_per_step": w.decode_s * 1e3 / w.decode_steps,
+                      "replay_steps": w.replay_steps,
+                      "decode_steps": w.decode_steps,
+                      "forward_vs_replay_rel": rel,
+                      "argmax_equal_share": same})
+        log(f"[ssm] wave {i} (bf16): forward (scan kernel) vs decode replay "
+            f"at each request's last prompt position: max abs diff / "
+            f"max|logit| {rel:.4g}, argmax equal in {same:.3f} of requests "
+            f"(reported, not bounded)")
+    last = eng.waves[-1]
+    e2e = _ssm_end_to_end(cfg, params, last.tokens)
+    log(f"[ssm] last wave's forward end to end (bf16): scan kernel vs plain "
+        f"chunked scan, max abs diff / max|logit| {e2e:.4g} (reported, not "
+        f"bounded)")
+    layers = _ssm_layer_by_layer(cfg, params, last.tokens)
+    worst = max(r["kernel_vs_plain"] for r in layers)
+    log(f"[ssm] last wave, layer by layer on the kernel forward's own "
+        f"hidden states: mamba block output, scan kernel vs plain chunked "
+        f"scan, max abs diff / max|output| over the {len(layers)} layers "
+        f"{worst:.4g} (tolerance 2e-2)")
+    if not worst <= 2e-2:
+        failures.append(f"mamba block with the kernel disagrees with the "
+                        f"plain path ({worst} of max|output|)")
+    marks = sorted({k for k in (0, 1, 3, 7, 15, 31, 47) if k < len(layers)}
+                   | {len(layers) - 1})
+    log("[ssm] the two forwards' residual streams (scan kernel, plain "
+        "chunked scan) apart after layer k, max abs diff / max|x|: "
+        + ", ".join(f"k={k}: {layers[k]['stream_divergence']:.3g}"
+                    for k in marks))
+    fp32 = _ssm_fp32_check(cfg, params, last)
+    log(f"[ssm] last wave again with the weights in fp32: forward, scan "
+        f"kernel vs plain chunked scan, max abs diff / max|logit| "
+        f"{fp32['kernel_vs_plain']:.4g}; forward (kernel) vs decode replay "
+        f"at each request's last prompt position {fp32['forward_vs_replay']:.4g}"
+        f", argmax equal in {fp32['argmax_equal_share']:.3f} of requests "
+        f"(tolerance 2e-2 on both)")
+    for what in ("kernel_vs_plain", "forward_vs_replay"):
+        if not fp32[what] <= 2e-2:
+            failures.append(f"fp32 end to end: {what} {fp32[what]} of "
+                            f"max|logit|")
+    prof = _profile_decode(eng)
+    log(f"[ssm] decode step profiled ({card}): wall "
+        f"{prof['wall_ms_per_step']:.3f} ms, card busy "
+        f"{prof['busy_ms_per_step']:.3f} ms ({prof['busy_share']:.3f} of "
+        f"the wall), {prof['kernels_per_step']:.0f} kernels per step; top: "
+        + "; ".join(f"{k} {ms:.3f} ms" for k, ms in prof["top"]))
+    steps = sum(w.replay_steps + w.decode_steps for w in eng.waves)
+    step_ms = sum(w.replay_s + w.decode_s for w in eng.waves) * 1e3 / steps
+    log(f"[ssm] on {card}: serve wall {wall_s:.3f}s for {SERVE_REQUESTS} "
+        f"requests; forward (prefill) "
+        + ", ".join(f"{w['forward_ms']:.2f}" for w in waves)
+        + f" ms per wave; decode {step_ms:.3f} ms per step over {steps} "
+        f"steps; peak device memory {peak / 2**30:.3f} GiB (weights "
+        f"included; {held / 2**30:.3f} GiB still held from earlier phases)")
+    if failures:
+        raise AssertionError("ssm serve: " + "; ".join(failures))
+    return {"arch": cfg.name, "params": n_params, "param_bytes": param_bytes,
+            "init_s": init_s, "init_peak_memory_bytes": init_peak,
+            "wall_s": wall_s, "launches": counts["mamba_scan"],
+            "launches_all": counts, "waves": waves,
+            "decode_ms_per_step": step_ms, "end_to_end_kernel_vs_plain": e2e,
+            "layer_by_layer": layers, "fp32": fp32, "decode_profile": prof,
+            "peak_memory_bytes": peak, "held_before_bytes": held,
+            "prefill_tokens": eng.prefill_tokens,
+            "reused_tokens": eng.reused_tokens,
+            "router": eng.router.stats(), "card": card}
+
+
+def _ssm_end_to_end(cfg, params, tokens) -> float:
+    """The wave's forward logits with the scan kernel against the plain
+    chunked scan: max abs diff / max|logit|."""
+    from repro_torch.models import make_forward
+
+    with torch.inference_mode():
+        plain, _ = make_forward(cfg.with_(use_mamba_kernel=False))(
+            params, {"tokens": tokens})
+        kernel, _ = make_forward(cfg)(params, {"tokens": tokens})
+        return float((kernel - plain).abs().max()) / float(plain.abs().max())
+
+
+def _ssm_layer_by_layer(cfg, params, tokens) -> list[dict]:
+    """Walk the kernel forward layer by layer; at each layer run the mamba
+    block with the scan kernel and with the plain chunked scan on the same
+    (kernel-path) input and compare.  Beside it, walk the plain forward's
+    own residual stream and record how far the two streams are apart after
+    each layer.  falcon-mamba-7b's layer is the mamba block and its
+    residual (no MLP, no post-norms)."""
+    from repro_torch.models import mamba as M
+    from repro_torch.models import transformer as T
+
+    def block(x, p, kernel):
+        return M.mamba_block(T._norm(cfg, x, p, "ln1"), p, use_kernel=kernel,
+                             chunk=cfg.ssm_chunk)
+
+    rows = []
+    with torch.inference_mode():
+        x = T.embed_inputs(cfg, params, {"tokens": tokens})
+        x_plain = x
+        for i in range(cfg.n_blocks):
+            p = T._layer(params["blocks"]["sub0"], i)
+            out_k, out_p = block(x, p, True), block(x, p, False)
+            x = x + out_k
+            x_plain = x_plain + block(x_plain, p, False)
+            out_k, out_p = out_k.float(), out_p.float()
+            rows.append({
+                "kernel_vs_plain": float((out_k - out_p).abs().max()
+                                         / out_p.abs().max()),
+                "max_abs_output": float(out_p.abs().max()),
+                "stream_divergence": float(
+                    (x.float() - x_plain.float()).abs().max()
+                    / x_plain.float().abs().max())})
+    return rows
+
+
+def _ssm_fp32_check(cfg, params, wave) -> dict:
+    """The wave's forward and decode replay again with the weights cast to
+    fp32: the forward with the scan kernel against the plain chunked scan,
+    and against the decode replay at each request's last prompt position
+    (max abs diff / max|logit|, and the share of equal argmaxes)."""
+    from repro_torch.models import init_cache, make_forward, make_serve_step
+    from repro_torch.models.transformer import flatten, unflatten
+
+    cfg32 = cfg.with_(dtype="float32")
+    toks, lens = wave.tokens, wave.lens
+    with torch.inference_mode():
+        p32 = unflatten((path, t.float()) for path, t in flatten(params))
+        kernel, _ = make_forward(cfg32)(p32, {"tokens": toks})
+        plain, _ = make_forward(cfg32.with_(use_mamba_kernel=False))(
+            p32, {"tokens": toks})
+        scale = float(plain.abs().max())
+        kernel_vs_plain = float((kernel - plain).abs().max()) / scale
+        del plain
+        rows = torch.arange(len(lens), device=toks.device)
+        last = torch.tensor([n - 1 for n in lens], device=toks.device)
+        pre = kernel[rows, last]
+        del kernel
+        step = make_serve_step(cfg32)
+        cache = init_cache(cfg32, len(lens), toks.shape[1],
+                           device=toks.device)
+        replay = torch.zeros_like(pre)
+        for t in range(max(lens)):
+            lg, cache = step(p32, cache, {"token": toks[:, t: t + 1],
+                                          "pos": t})
+            ending = [i for i, n in enumerate(lens) if n == t + 1]
+            if ending:
+                replay[ending] = lg[ending, -1]
+        rel = float((pre - replay).abs().max() / pre.abs().max())
+        same = float((pre.argmax(-1) == replay.argmax(-1)).float().mean())
+    return {"kernel_vs_plain": kernel_vs_plain, "forward_vs_replay": rel,
+            "argmax_equal_share": same}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--json", type=Path, default=None,
@@ -795,13 +1159,11 @@ def main(argv=None) -> int:
     log("[env] TF32 off for matmuls and cuDNN: fp32 products run in fp32")
     kernels = phase_kernels()
     kernels["flash_attention"] = phase_flash_kernel()
-    m_ms, m_by = mamba_scan_bound(*MAMBA_SHAPE)
-    log(f"[kernel] mamba_scan: not ported yet; bound at falcon-mamba-7b's "
-        f"widths (B, S, I, N) = {MAMBA_SHAPE}: {m_ms * 1e3:.3f} us "
-        f"({m_by})")
+    kernels["mamba_scan"] = phase_mamba_kernel()
     flat = phase_flat()
     pipe = phase_pipeline()
     serve = phase_serve()
+    ssm = phase_ssm_serve()
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
@@ -844,11 +1206,31 @@ def main(argv=None) -> int:
             "shape", "max_abs_err", "ms", "plain_ms", "host_ms", "bound_ms",
             "bound_by", "library_ms")},
     })
+    ms_rows = {r["case"]: r for r in kernels["mamba_scan"]}
+    ms_main, ms_prefill = ms_rows["main/serve"], ms_rows["main/prefill"]
+    line["kernels"].append({
+        "name": "mamba_scan",
+        "route": "cuda",
+        "source": MAMBA_SOURCE,
+        "replaces": MAMBA_TPU_KERNEL,
+        "launches": ssm["launches"],
+        "shape": ms_main["shape"],
+        "max_abs_err": max(ms_main["max_abs_err"], ms_prefill["max_abs_err"]),
+        "ms": ms_main["ms"],
+        "plain_ms": ms_main["plain_ms"],
+        "host_ms": ms_main["host_ms"],
+        "bound_ms": ms_main["bound_ms"],
+        "bound_by": ms_main["bound_by"],
+        "library_ms": None,
+        "prefill": {k: ms_prefill[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "host_ms", "bound_ms",
+            "bound_by", "library_ms")},
+    })
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(
             {"env": env, "kernels": kernels, "flat": flat, "pipeline": pipe,
-             "serve": serve, "kernels_line": line,
+             "serve": serve, "ssm_serve": ssm, "kernels_line": line,
              "seconds": time.monotonic() - t_start},
             indent=2, default=str) + "\n")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")

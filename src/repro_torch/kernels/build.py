@@ -30,6 +30,7 @@ SOURCES: dict[str, Path] = {
     "stack_rois": _KERNELS_DIR / "stacking" / "csrc" / "stack_rois.cu",
     "flash_attention": (_KERNELS_DIR / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
+    "mamba_scan": _KERNELS_DIR / "mamba_scan" / "csrc" / "mamba_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

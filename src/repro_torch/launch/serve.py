@@ -3,7 +3,8 @@
 The port of the reference's ``repro.launch.serve``, on the card:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --reduced --device cpu          # a small rehearsal on the CPU
 
 It prints the reference's three ``[serve]`` lines, then one line with the
@@ -11,7 +12,11 @@ forward (prefill) and decode times, named with the device they ran on.
 The weights are random, drawn on the device from ``--seed``.
 ``--attn-impl flash`` (the default) runs the prefill forward's attention
 through the hand-written CUDA kernel, which is what replaces the
-reference's ``blocked`` attention on an accelerator.
+reference's ``blocked`` attention on an accelerator; ``--mamba-kernel``
+(the default) runs each Mamba layer's selective scan in the forward
+through the hand-written CUDA scan kernel, which is what replaces the
+reference's chunked plain scan on an accelerator (``--no-mamba-kernel``
+selects the plain path, for comparison).
 """
 from __future__ import annotations
 
@@ -73,6 +78,14 @@ def report(eng: ServeEngine, done: list[Request], replicas: int,
     fwd_ms = [w.forward_s * 1e3 for w in eng.waves]
     steps = sum(w.replay_steps + w.decode_steps for w in eng.waves)
     step_ms = sum(w.replay_s + w.decode_s for w in eng.waves) * 1e3 / steps
+    cfg = eng.cfg
+    mixers = []
+    if any(s.kind == "attn" for s in cfg.pattern):
+        mixers.append(f"attention {cfg.attn_impl}")
+    if any(s.kind == "mamba" for s in cfg.pattern):
+        ran_kernel = cfg.use_mamba_kernel and eng.device.type == "cuda"
+        mixers.append("selective scan "
+                      + ("mamba_scan kernel" if ran_kernel else "plain"))
     return [
         f"[serve] served {len(done)} requests on {replicas} replicas "
         f"({policy})",
@@ -82,8 +95,8 @@ def report(eng: ServeEngine, done: list[Request], replicas: int,
         f"[serve] on {describe(eng.device)}: prefill forward "
         + ", ".join(f"{t:.2f}" for t in fwd_ms)
         + f" ms per wave of {WAVE} x {eng.max_seq} tokens; decode "
-        f"{step_ms:.2f} ms per step ({steps} steps, attention "
-        f"{eng.cfg.attn_impl} in the forward)",
+        f"{step_ms:.2f} ms per step ({steps} steps, {', '.join(mixers)} "
+        f"in the forward)",
     ]
 
 
@@ -102,12 +115,18 @@ def main(argv=None) -> int:
                     choices=("flash", "blocked", "ref"),
                     help="attention of the prefill forward (default flash: "
                          "the hand-written CUDA kernel on the card)")
+    ap.add_argument("--mamba-kernel", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="selective scan of the prefill forward's Mamba "
+                         "layers: the hand-written CUDA kernel on the card "
+                         "(default), or the plain chunked path")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = cfg.with_(attn_impl=args.attn_impl)
+    cfg = cfg.with_(attn_impl=args.attn_impl,
+                    use_mamba_kernel=args.mamba_kernel)
     eng, done = serve(cfg, args.requests, args.replicas, args.policy,
                       args.max_new, args.seed, resolve_device(args.device))
     for line in report(eng, done, args.replicas, args.policy):

@@ -1,4 +1,4 @@
-"""The LM substrate of the port: configuration schema, the dense decoder
+"""The LM substrate of the port: configuration schema, the decoder
 and its step builders (counterpart of ``repro.models``)."""
 from .config import LayerSpec, ModelConfig
 from .model import make_forward, make_prefill, make_serve_step

@@ -1,0 +1,156 @@
+"""Mamba-1 selective SSM block (falcon-mamba / jamba mamba layers).
+
+The port of the reference's ``repro.models.mamba``.  The full-sequence
+block (prefill) runs the selective scan either through the hand-written
+CUDA kernel (``use_kernel``; ``kernels/mamba_scan``) or through the plain
+chunked path; decode is the O(1) recurrent update.  The reference's order
+of operations is kept where bf16 rounding depends on it: the causal conv
+as K shifted multiply-adds summed in the order of k, the projection cast
+to fp32 before its split into dt, B and C, and y cast to x's dtype before
+the gate.
+
+Shapes (per layer): d_inner = expand * d_model, N = d_state, R = dt_rank.
+  in_proj  (D, 2*d_inner)     conv_w  (K, d_inner)      x_proj (d_inner, R+2N)
+  dt_proj  (R, d_inner)       A_log   (d_inner, N)      D      (d_inner,)
+  out_proj (d_inner, D)
+
+Left out: the ``rules``/``shard`` arguments (one card, no mesh) and the
+checkpointing of the plain scan (no backward yet).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.mamba_scan import ops as ms_ops
+
+
+def mamba_param_shapes(d_model: int, d_inner: int, d_state: int,
+                       d_conv: int, dt_rank: int) -> dict:
+    """Leaf name -> shape of one mamba layer's parameters."""
+    return {
+        "in_proj": (d_model, 2 * d_inner),
+        "conv_w": (d_conv, d_inner),
+        "conv_b": (d_inner,),
+        "x_proj": (d_inner, dt_rank + 2 * d_state),
+        "dt_proj": (dt_rank, d_inner),
+        "dt_bias": (d_inner,),
+        "A_log": (d_inner, d_state),
+        "D": (d_inner,),
+        "out_proj": (d_inner, d_model),
+    }
+
+
+def _ssm_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+              h0: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan, the reference's plain form.  u, dt (B,S,I); A (I,N);
+    Bm, Cm (B,S,N); D (I,).  Returns (y (B,S,I), h_last (B,I,N)).
+
+    dA and dBu are formed for the whole sequence at once, then a loop over
+    time; dBu in the order ``dt·B·u`` (the kernel's is ``(dt·u)·B``)."""
+    b, s, i = u.shape
+    h = (torch.zeros((b, i, A.shape[1]), dtype=torch.float32,
+                     device=u.device) if h0 is None else h0)
+    dA = torch.exp(dt[..., None] * A[None, None])                # (B,S,I,N)
+    dBu = dt[..., None] * Bm[:, :, None, :] * u[..., None]       # (B,S,I,N)
+    hs = []
+    for t in range(s):
+        h = dA[:, t] * h + dBu[:, t]
+        hs.append(h)
+    y = torch.einsum("bsin,bsn->bsi", torch.stack(hs, dim=1), Cm) \
+        + u * D[None, None]
+    return y, h
+
+
+def mamba_block(x: torch.Tensor, p: dict,
+                conv_state: Optional[torch.Tensor] = None,
+                ssm_state: Optional[torch.Tensor] = None,
+                return_state: bool = False, use_kernel: bool = False,
+                chunk: int = 256):
+    """Full-sequence Mamba block (prefill).  x (B,S,D); ``conv_state``
+    (B,K-1,I) is carried context and ``ssm_state`` (B,I,N) an initial
+    state.  Returns the output (B,S,D), and with ``return_state`` also the
+    new conv state and the last ssm state.  ``use_kernel`` runs the scan
+    through the CUDA kernel on the card (its plain version on the CPU);
+    otherwise the plain scan runs in chunks of ``chunk`` steps."""
+    b, s, _ = x.shape
+    k_conv, i = p["conv_w"].shape
+    n = p["A_log"].shape[-1]
+    r = p["dt_proj"].shape[0]
+
+    xz = torch.einsum("bsd,di->bsi", x, p["in_proj"].to(x.dtype))
+    xs, z = xz.chunk(2, dim=-1)
+
+    # causal depthwise conv1d as K shifted multiply-adds, summed in k order
+    pad = conv_state if conv_state is not None else torch.zeros(
+        (b, k_conv - 1, i), dtype=xs.dtype, device=xs.device)
+    xpad = torch.cat([pad, xs], dim=1)                          # (B,S+K-1,I)
+    w = p["conv_w"].to(x.dtype)
+    xc = sum(xpad[:, k: k + s] * w[k][None, None, :] for k in range(k_conv))
+    xc = xc + p["conv_b"].to(x.dtype)
+    xc = F.silu(xc)
+    new_conv_state = xpad[:, s:] if k_conv > 1 else pad
+
+    proj = torch.einsum("bsi,ir->bsr", xc, p["x_proj"].to(x.dtype)).float()
+    dt_r, Bm, Cm = proj[..., :r], proj[..., r: r + n], proj[..., r + n:]
+    dt = F.softplus(torch.einsum("bsr,ri->bsi", dt_r, p["dt_proj"].float())
+                    + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    Dv = p["D"].float()
+    u32 = xc.float()
+
+    if use_kernel:
+        y, h_last = ms_ops.mamba_scan(u32, dt, A, Bm, Cm, Dv, h0=ssm_state)
+    else:
+        # chunked over the sequence: one chunk's (B, S, I, N) fp32
+        # intermediates live at a time
+        h = ssm_state
+        ys = []
+        step = min(chunk, s) if chunk > 0 else s
+        for s0 in range(0, s, step):
+            sl = slice(s0, min(s0 + step, s))
+            y_c, h = _ssm_scan(u32[:, sl], dt[:, sl], A, Bm[:, sl],
+                               Cm[:, sl], Dv, h0=h)
+            ys.append(y_c)
+        y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+        h_last = h
+    y = y.to(x.dtype) * F.silu(z)
+    out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
+    if return_state:
+        return out, new_conv_state, h_last
+    return out
+
+
+def mamba_decode(x: torch.Tensor, p: dict, conv_state: torch.Tensor,
+                 ssm_state: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """O(1) single-token recurrence.  x (B,1,D); conv_state (B,K-1,I);
+    ssm_state (B,I,N) fp32.  Returns (out (B,1,D), new conv state, new ssm
+    state); the inputs are not modified."""
+    n = p["A_log"].shape[-1]
+    r = p["dt_proj"].shape[0]
+
+    xz = torch.einsum("bsd,di->bsi", x, p["in_proj"].to(x.dtype))
+    xs, z = xz.chunk(2, dim=-1)                                  # (B,1,I)
+    window = torch.cat([conv_state, xs], dim=1)                  # (B,K,I)
+    xc = torch.einsum("bki,ki->bi", window, p["conv_w"].to(x.dtype))
+    xc = F.silu(xc + p["conv_b"].to(x.dtype))                    # (B,I)
+    new_conv_state = window[:, 1:]
+
+    proj = torch.einsum("bi,ir->br", xc, p["x_proj"].to(x.dtype)).float()
+    dt_r, Bm, Cm = proj[..., :r], proj[..., r: r + n], proj[..., r + n:]
+    dt = F.softplus(torch.einsum("br,ri->bi", dt_r, p["dt_proj"].float())
+                    + p["dt_bias"].float())                      # (B,I)
+    A = -torch.exp(p["A_log"].float())                           # (I,N)
+    u32 = xc.float()
+    dA = torch.exp(dt[..., None] * A[None])                      # (B,I,N)
+    dBu = dt[..., None] * Bm[:, None, :] * u32[..., None]
+    h = dA * ssm_state + dBu                                     # (B,I,N)
+    y = torch.einsum("bin,bn->bi", h, Cm) + u32 * p["D"].float()[None]
+    y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None, :]            # (B,1,I)
+    out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
+    return out, new_conv_state, h

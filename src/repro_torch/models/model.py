@@ -1,6 +1,6 @@
 """Model API: the step builders the serving engine and launchers call.
 
-The port of the reference's ``repro.models.model``, dense decoder branch:
+The port of the reference's ``repro.models.model``, decoder branch:
 ``make_forward``, ``make_prefill`` and ``make_serve_step`` return plain
 functions over (params, batch).  PyTorch runs eagerly, so there is nothing
 to jit; callers run them under ``torch.inference_mode()``.
@@ -23,7 +23,7 @@ from .config import ModelConfig
 def make_forward(cfg: ModelConfig) -> Callable[..., tuple[torch.Tensor,
                                                           torch.Tensor]]:
     """fwd(params, {"tokens": (B,S)}) -> (logits (B,S,V) fp32, aux)."""
-    T._check_dense(cfg)
+    T._check_supported(cfg)
 
     def fwd(params, batch):
         return T.forward_lm(cfg, params, batch["tokens"])
@@ -33,7 +33,7 @@ def make_forward(cfg: ModelConfig) -> Callable[..., tuple[torch.Tensor,
 def make_prefill(cfg: ModelConfig):
     """Full-sequence forward that returns the LAST position's logits
     (B, 1, V): the serving semantic."""
-    T._check_dense(cfg)
+    T._check_supported(cfg)
 
     def prefill(params, batch):
         x = T.embed_inputs(cfg, params, batch)
@@ -46,8 +46,8 @@ def make_prefill(cfg: ModelConfig):
 
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, cache, {"token": (B,1), "pos": int}) ->
-    (logits (B,1,V), cache): one-token decode against the KV cache."""
-    T._check_dense(cfg)
+    (logits (B,1,V), cache): one-token decode against the KV/state cache."""
+    T._check_supported(cfg)
 
     def serve_step(params, cache, batch):
         return T.decode_step_lm(cfg, params, cache, batch["token"],

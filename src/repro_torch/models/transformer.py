@@ -1,4 +1,5 @@
-"""The patterned decoder of the LM-family architectures, dense branch.
+"""The patterned decoder of the LM-family architectures: attention and
+Mamba-1 sub-layers with dense MLPs or none.
 
 The port of the reference's ``repro.models.transformer``.  Parameters are
 the reference's nested dict with the same leaf names, shapes and dtypes:
@@ -7,8 +8,8 @@ tree converts leaf for leaf (``repro_torch.convert.params_from_jax``).  The
 reference's ``lax.scan`` over blocks is a Python loop over layers, each
 reading its slice of the stacked leaves (a view, no copy).
 
-Left out, each for its slice (``ROADMAP.md``): mamba sub-layers, MoE MLPs,
-the encoder-decoder and its learned positions, the vision splice, remat and
+Left out, each for its slice (``ROADMAP.md``): MoE MLPs, the
+encoder-decoder and its learned positions, the vision splice, remat and
 the gradient barrier (no backward yet), logical sharding axes,
 ``forward_lm_hidden`` and ``abstract_params``.
 """
@@ -21,6 +22,7 @@ import torch
 
 from . import layers as L
 from .config import LayerSpec, ModelConfig
+from .mamba import mamba_block, mamba_decode, mamba_param_shapes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -68,7 +70,10 @@ def _norm_defs(cfg: ModelConfig, name: str) -> dict[str, ParamDef]:
     return {f"{name}_scale": ParamDef((D,), init, "float32")}
 
 
-def _check_dense(cfg: ModelConfig) -> None:
+def _check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port does not run yet, naming the slice that
+    brings it: attention and mamba sub-layers with dense MLPs (or none)
+    run."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder comes with the encdec slice")
@@ -81,18 +86,33 @@ def _check_dense(cfg: ModelConfig) -> None:
             f"{cfg.name}: learned positions (pos_embed) come with the "
             f"encdec slice")
     for spec in cfg.pattern:
-        if spec.kind != "attn":
+        if spec.kind not in ("attn", "mamba"):
             raise NotImplementedError(
-                f"{cfg.name}: {spec.kind} sub-layers come with the SSM slice")
+                f"{cfg.name}: unknown sub-layer kind {spec.kind!r}")
         if spec.mlp == "moe":
             raise NotImplementedError(
                 f"{cfg.name}: MoE sub-layers come with the MoE slice")
 
 
+_MAMBA_FP32 = ("A_log", "D", "dt_bias", "conv_b")
+_MAMBA_ZEROS = ("dt_bias", "conv_b", "D")
+
+
+def _mamba_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    shapes = mamba_param_shapes(cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                                cfg.ssm_conv, cfg.dt_rank)
+    return {k: ParamDef(shape, "zeros" if k in _MAMBA_ZEROS else "normal",
+                        "float32" if k in _MAMBA_FP32 else "param")
+            for k, shape in shapes.items()}
+
+
 def _sub_defs(cfg: ModelConfig, spec: LayerSpec) -> dict[str, ParamDef]:
     defs: dict[str, ParamDef] = {}
     defs.update(_norm_defs(cfg, "ln1"))
-    defs.update(_attn_defs(cfg))
+    if spec.kind == "attn":
+        defs.update(_attn_defs(cfg))
+    else:
+        defs.update(_mamba_defs(cfg))
     if cfg.post_norms:
         defs.update(_norm_defs(cfg, "post_ln1"))
     if spec.mlp == "dense":
@@ -109,8 +129,8 @@ def _stack(defs: dict[str, ParamDef], n: int) -> dict[str, ParamDef]:
 
 
 def param_defs(cfg: ModelConfig) -> dict[str, Any]:
-    """The reference's parameter tree (dense configs), as ParamDefs."""
-    _check_dense(cfg)
+    """The reference's parameter tree, as ParamDefs."""
+    _check_supported(cfg)
     V, D = cfg.vocab_size, cfg.d_model
     defs: dict[str, Any] = {
         "embed": ParamDef((V, D)),
@@ -194,11 +214,16 @@ def _variant(cfg: ModelConfig, spec: LayerSpec,
 
 def _apply_sub(cfg: ModelConfig, spec: LayerSpec, x, p, positions,
                causal: bool = True):
-    """One sub-layer (attention + MLP) with residuals."""
+    """One sub-layer (token mixer: attention or mamba; then the MLP, if
+    any) with residuals."""
     h = _norm(cfg, x, p, "ln1")
-    h = L.attention_block(h, p, positions, _variant(cfg, spec, causal),
-                          cfg.rope_theta, use_rope=cfg.use_rope,
-                          impl=cfg.attn_impl)
+    if spec.kind == "attn":
+        h = L.attention_block(h, p, positions, _variant(cfg, spec, causal),
+                              cfg.rope_theta, use_rope=cfg.use_rope,
+                              impl=cfg.attn_impl)
+    else:
+        h = mamba_block(h, p, use_kernel=cfg.use_mamba_kernel,
+                        chunk=cfg.ssm_chunk)
     if cfg.post_norms:
         h = _norm(cfg, h, p, "post_ln1")
     x = x + h
@@ -246,25 +271,34 @@ def forward_lm(cfg: ModelConfig, params, tokens: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# KV cache + single-token decode
+# KV / state caches + single-token decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype: Optional[str] = None,
                device: str | torch.device = "cuda") -> dict:
-    """The reference's cache tree: ``{"sub<i>": {"k", "v"}}``, each
-    (n_blocks, batch, S_cache, KV, Dh) zeros, S_cache = min(window, seq_len)
-    on SWA layers."""
-    _check_dense(cfg)
+    """The reference's cache tree, zeros with a leading ``n_blocks`` dim:
+    ``{"sub<i>": {"k", "v"}}`` on attention sub-layers, each (n_blocks,
+    batch, S_cache, KV, Dh) with S_cache = min(window, seq_len) on SWA
+    layers; ``{"sub<i>": {"conv", "ssm"}}`` on mamba sub-layers, the conv
+    window (n_blocks, batch, K-1, I) in the cache dtype and the state
+    (n_blocks, batch, I, N) in fp32."""
+    _check_supported(cfg)
     dt = torch_dtype(dtype or cfg.dtype)
     nb, KV, dh = cfg.n_blocks, cfg.n_kv_heads, cfg.head_dim_
     cache: dict[str, Any] = {}
     for i, spec in enumerate(cfg.pattern):
-        sc = cfg.kv_cache_len(spec, seq_len)
+        if spec.kind == "attn":
+            sc = cfg.kv_cache_len(spec, seq_len)
+            shapes = {"k": ((nb, batch, sc, KV, dh), dt),
+                      "v": ((nb, batch, sc, KV, dh), dt)}
+        else:
+            I, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+            shapes = {"conv": ((nb, batch, K - 1, I), dt),
+                      "ssm": ((nb, batch, I, N), torch.float32)}
         cache[f"sub{i}"] = {
-            "k": torch.zeros((nb, batch, sc, KV, dh), dtype=dt, device=device),
-            "v": torch.zeros((nb, batch, sc, KV, dh), dtype=dt, device=device),
-        }
+            name: torch.zeros(shape, dtype=d, device=device)
+            for name, (shape, d) in shapes.items()}
     return cache
 
 
@@ -276,21 +310,29 @@ def decode_step_lm(cfg: ModelConfig, params, cache, token: torch.Tensor,
     x = L.embed(token, params["embed"], cfg.embed_scale)
     for i in range(cfg.n_blocks):
         for j, spec in enumerate(cfg.pattern):
-            c = cache[f"sub{j}"]
+            c = _layer(cache[f"sub{j}"], i)
             p = _layer(params["blocks"][f"sub{j}"], i)
-            x = _decode_sub(cfg, spec, x, p, c["k"][i], c["v"][i], pos)
+            x = _decode_sub(cfg, spec, x, p, c, pos)
     x = _norm(cfg, x, params, "final")
     return _unembed(cfg, params, x), cache
 
 
-def _decode_sub(cfg: ModelConfig, spec: LayerSpec, x, p, cache_k, cache_v,
+def _decode_sub(cfg: ModelConfig, spec: LayerSpec, x, p, cache: dict,
                 pos: int):
-    """One sub-layer of the decode step (the reference's scan body), with
-    this layer's cache slices updated in place."""
+    """One sub-layer of the decode step (the reference's scan body).
+    ``cache`` holds this layer's slices of the cache leaves (views), which
+    are updated in place: k and v at the new position on an attention
+    sub-layer, the new conv window and ssm state on a mamba sub-layer (the
+    reference returns a new cache tree; the port writes into this one)."""
     h = _norm(cfg, x, p, "ln1")
-    h, _, _ = L.attention_decode(h, p, cache_k, cache_v, pos,
-                                 _variant(cfg, spec), cfg.rope_theta,
-                                 use_rope=cfg.use_rope)
+    if spec.kind == "attn":
+        h, _, _ = L.attention_decode(h, p, cache["k"], cache["v"], pos,
+                                     _variant(cfg, spec), cfg.rope_theta,
+                                     use_rope=cfg.use_rope)
+    else:
+        h, conv, ssm = mamba_decode(h, p, cache["conv"], cache["ssm"])
+        cache["conv"].copy_(conv)
+        cache["ssm"].copy_(ssm)
     if cfg.post_norms:
         h = _norm(cfg, h, p, "post_ln1")
     x = x + h

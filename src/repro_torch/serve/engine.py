@@ -5,9 +5,10 @@ The port of the reference's ``repro.serve.engine``.  Single process, R
 logical replicas of one model sharing one set of weights: requests are
 routed by PrefixAwareRouter, the wave's full forward runs (on the card its
 attention is the hand-written flash kernel when ``cfg.attn_impl`` is
-``"flash"``), the KV cache is filled by replaying the prompt through the
-decode step, and the batch is decoded greedily -- all as the reference
-does.  Beyond the reference, each wave leaves a :class:`WaveRecord`: the
+``"flash"``, and its Mamba layers' scan the hand-written scan kernel when
+``cfg.use_mamba_kernel``), the KV/state cache is filled by replaying the
+prompt through the decode step, and the batch is decoded greedily -- all
+as the reference does.  Beyond the reference, each wave leaves a :class:`WaveRecord`: the
 forward's and the replay's logits at every request's last prompt position
 (the two must agree), and the wave's times.
 """

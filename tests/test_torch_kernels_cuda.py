@@ -14,6 +14,9 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.mamba_scan import mamba_scan as ms
+from repro_torch.kernels.mamba_scan import ops as ms_ops
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.kernels.stacking import ops, stacking
 from repro_torch.kernels.stacking.ref import stack_rois_ref
 
@@ -203,6 +206,150 @@ def test_serve_engine_forward_matches_decode_replay(cuda):
     eng, done = launch.serve(cfg, 16, 2, "max-compute-util", 4, 0, cuda)
     torch.cuda.synchronize()
     assert fa.launches.value - before == cfg.n_layers * len(eng.waves) == 4
+    assert all(len(r.output) == 4 for r in done)
+    for w in eng.waves:
+        scale = float(w.prefill_logits.abs().max())
+        torch.testing.assert_close(w.replay_logits, w.prefill_logits,
+                                   atol=1e-4 * scale, rtol=1e-4)
+
+
+# --------------------------- selective scan ----------------------------------
+
+MS_CASES = [
+    # (B, S, I, N): the reference's four (tests/test_kernels.py), the
+    # serving forward's shape at falcon-mamba-7b's widths, then one step,
+    # a state size that is no power of two, and the largest state
+    (1, 32, 16, 4),
+    (2, 96, 48, 8),
+    (2, 128, 64, 16),
+    (1, 50, 24, 4),
+    (8, 96, 8192, 16),
+    (3, 1, 100, 16),
+    (2, 70, 130, 5),
+    (2, 33, 64, 32),
+]
+MS_TOL = dict(atol=2e-4, rtol=1e-3)   # the reference's (tests/test_kernels.py)
+
+
+def _ms_inputs(b, s, i, n, dev, seed, h0=True):
+    """The reference test's distributions: u, dt = softplus(normal),
+    A = -exp(0.5·normal), Bm, Cm, D, and h0 = 0.05."""
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    arrs = {"u": normal(b, s, i),
+            "dt": torch.nn.functional.softplus(normal(b, s, i)),
+            "A": -torch.exp(normal(i, n) * 0.5), "Bm": normal(b, s, n),
+            "Cm": normal(b, s, n), "D": normal(i)}
+    if h0:
+        arrs["h0"] = torch.full((b, i, n), 0.05, device=dev)
+    return arrs
+
+
+def _ms_close(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, **MS_TOL)
+
+
+@pytest.mark.parametrize("B,S,I,N", MS_CASES)
+def test_scan_kernel_matches_plain(cuda, B, S, I, N):
+    arrs = _ms_inputs(B, S, I, N, cuda, seed=S + I)
+    before = ms.launches.value
+    got = ms_ops.mamba_scan(**arrs)
+    torch.cuda.synchronize()
+    assert ms.launches.value == before + 1
+    assert all(t.device == cuda and t.is_contiguous() for t in got)
+    _ms_close(got, mamba_scan_ref(**arrs))
+
+
+def test_scan_kernel_takes_column_slices_of_the_projection(cuda):
+    """Bm and Cm as the model passes them: column slices of the fp32
+    projection (B, S, R + 2N), uncopied; u a slice of a wider tensor."""
+    b, s, i, n, r = 2, 40, 96, 16, 6
+    arrs = _ms_inputs(b, s, i, n, cuda, seed=3)
+    proj = torch.randn(b, s, r + 2 * n, device=cuda)
+    wide = torch.randn(b, s, 2 * i, device=cuda)
+    views = dict(arrs, u=wide[..., :i], Bm=proj[..., r: r + n],
+                 Cm=proj[..., r + n:])
+    assert not any(views[k].is_contiguous() for k in ("u", "Bm", "Cm"))
+    got = ms.mamba_scan_fwd(**views)
+    want = mamba_scan_ref(**{k: v.contiguous() for k, v in views.items()})
+    torch.cuda.synchronize()
+    _ms_close(got, want)
+
+
+def test_scan_kernel_without_h0_is_a_zero_state(cuda):
+    arrs = _ms_inputs(2, 77, 200, 16, cuda, seed=4, h0=False)
+    got = ms.mamba_scan_fwd(**arrs)
+    zero = ms.mamba_scan_fwd(**arrs, h0=torch.zeros(2, 200, 16, device=cuda))
+    torch.cuda.synchronize()
+    for g, z in zip(got, zero):
+        assert torch.equal(g, z)
+    _ms_close(got, mamba_scan_ref(**arrs))
+
+
+def test_scan_kernel_state_chaining(cuda):
+    """The two halves with h_last carried over as h0 give the whole."""
+    arrs = _ms_inputs(1, 64, 16, 8, cuda, seed=5, h0=False)
+    y_full, h_full = ms.mamba_scan_fwd(**arrs)
+    first = {k: (v[:, :32] if v.dim() == 3 else v) for k, v in arrs.items()}
+    second = {k: (v[:, 32:] if v.dim() == 3 else v) for k, v in arrs.items()}
+    y1, h1 = ms.mamba_scan_fwd(**first)
+    y2, h2 = ms.mamba_scan_fwd(**second, h0=h1)
+    torch.cuda.synchronize()
+    _ms_close((torch.cat([y1, y2], 1), h2), (y_full, h_full))
+
+
+def test_scan_kernel_refuses_what_it_does_not_take(cuda):
+    arrs = _ms_inputs(1, 8, 16, 4, cuda, seed=6)
+    with pytest.raises(ValueError, match="Bm is on cpu"):
+        ms.mamba_scan_fwd(**dict(arrs, Bm=arrs["Bm"].cpu()))
+    with pytest.raises(TypeError, match="bfloat16"):
+        ms.mamba_scan_fwd(**dict(arrs, dt=arrs["dt"].bfloat16()))
+    with pytest.raises(ValueError, match="Cm must be"):
+        ms.mamba_scan_fwd(**dict(arrs, Cm=arrs["Cm"][:, :4]))
+    with pytest.raises(ValueError, match="last dim"):
+        ms.mamba_scan_fwd(**dict(arrs, A=arrs["A"].t().contiguous().t()))
+    big = _ms_inputs(1, 8, 16, 33, cuda, seed=7)
+    with pytest.raises(ValueError, match="state size"):
+        ms.mamba_scan_fwd(**big)
+
+
+def test_ssm_forward_launches_scan_once_per_layer(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_forward
+
+    cfg = get_config("falcon-mamba-7b").reduced().with_(
+        dtype="float32", use_mamba_kernel=True)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda)
+    before = ms.launches.value
+    logits, _ = make_forward(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert ms.launches.value - before == cfg.n_layers
+    plain, _ = make_forward(cfg.with_(use_mamba_kernel=False))(
+        params, {"tokens": tokens})
+    scale = float(plain.abs().max())
+    torch.testing.assert_close(logits, plain, atol=1e-4 * scale, rtol=1e-4)
+
+
+def test_ssm_serve_engine_forward_matches_decode_replay(cuda):
+    """The launcher's traffic on reduced falcon-mamba-7b in fp32 on the
+    card: one scan launch per layer per wave, and each wave's forward
+    logits equal the decode replay's at every request's last prompt
+    position."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+
+    cfg = get_config("falcon-mamba-7b").reduced().with_(
+        dtype="float32", use_mamba_kernel=True)
+    before = ms.launches.value
+    eng, done = launch.serve(cfg, 16, 2, "max-compute-util", 4, 0, cuda)
+    torch.cuda.synchronize()
+    assert ms.launches.value - before == cfg.n_layers * len(eng.waves) == 4
     assert all(len(r.output) == 4 for r in done)
     for w in eng.waves:
         scale = float(w.prefill_logits.abs().max())

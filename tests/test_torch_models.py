@@ -1,10 +1,11 @@
-"""The port's dense decoder against the JAX reference, on the CPU.
+"""The port's decoder against the JAX reference, on the CPU.
 
 Layer by layer in fp32 and bf16, then the whole forward (attention impl
-flash, blocked and ref) and the one-token decode on the ``reduced()`` form
-of the four dense configs, with the reference's own ``init_params`` weights
-carried over by ``convert.params_from_jax``.  JAX runs as its own tests run
-it: the Pallas flash kernel in interpret mode.
+flash, blocked and ref; the Mamba scan through the kernel's op or the
+plain chunked path) and the one-token decode on the ``reduced()`` form of
+the four dense configs and falcon-mamba-7b, with the reference's own
+``init_params`` weights carried over by ``convert.params_from_jax``.  JAX
+runs as its own tests run it: the Pallas kernels in interpret mode.
 
 Tolerances: fp32 atol = rtol = 1e-4 (the reference's own flash-vs-ref gap
 is about 2e-5 at these sizes: its wrapper pads head_dim and rescales q);
@@ -23,6 +24,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import init_cache as jax_init_cache
 from repro.models import init_params as jax_init_params
 from repro.models import layers as JL
+from repro.models import mamba as JM
 from repro.models import transformer as JT
 from repro.models.model import make_forward as jax_make_forward
 from repro.models.model import make_prefill as jax_make_prefill
@@ -33,10 +35,12 @@ from repro_torch.models import (init_cache, init_params, make_forward,
                                 make_prefill, make_serve_step, param_defs)
 from repro_torch.models import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import flatten
 
-DENSE = sorted(REGISTRY)
+DENSE = sorted(k for k, c in REGISTRY.items() if c.family == "dense")
+SSM = "falcon-mamba-7b"
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -234,6 +238,83 @@ def test_embed_and_unembed(scale, softcap, dtype):
     _close(got, want, dtype, rel=True)
 
 
+def _mamba_params(d, i, n, k, r, dtype, seed):
+    """One mamba layer's leaves as (JAX, torch) dicts: the matrices
+    normal·1/√fan_in in ``dtype``; A_log, D, dt_bias and conv_b in fp32,
+    drawn (the reference initialises the last three to zero)."""
+    rng = _rng(seed)
+    jp, tp = {}, {}
+    for name, shape in M.mamba_param_shapes(d, i, n, k, r).items():
+        a = rng.standard_normal(shape).astype(np.float32)
+        if len(shape) == 2 and name != "A_log":
+            a /= np.sqrt(shape[0])
+        elif name != "A_log":
+            a *= 0.5
+        jp[name], tp[name] = _pair(
+            a, "float32" if name in T._MAMBA_FP32 else dtype)
+    return jp, tp
+
+
+def _close_mamba(got, want, dtype):
+    """fp32 at 1e-5; bf16 at 2e-2 of max|want|."""
+    want = _np(want)
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-2 * np.abs(want).max(),
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mamba_block(dtype, use_kernel, with_state):
+    """Both branches of ``use_kernel`` (the reference's Pallas kernel in
+    interpret mode; the port's op takes its plain version on the CPU), the
+    plain one in ragged chunks of 8 over S = 20, from a zero or a carried
+    conv and ssm state."""
+    jp, tp = _mamba_params(32, 64, 8, 4, 2, dtype, 20)
+    r = _rng(21)
+    jx, tx = _pair(r.standard_normal((2, 20, 32)).astype(np.float32), dtype)
+    states = {}
+    if with_state:
+        (jc, tc), (jh, th) = (
+            _pair(r.standard_normal((2, 3, 64)).astype(np.float32), dtype),
+            _pair(r.standard_normal((2, 64, 8)).astype(np.float32) * 0.5,
+                  "float32"))
+        states = dict(conv_state=(jc, tc), ssm_state=(jh, th))
+    want = JM.mamba_block(jx, jp, None, return_state=True,
+                          use_kernel=use_kernel, chunk=8,
+                          **{k: j for k, (j, _) in states.items()})
+    got = M.mamba_block(tx, tp, return_state=True, use_kernel=use_kernel,
+                        chunk=8, **{k: t for k, (_, t) in states.items()})
+    assert got[0].dtype == tx.dtype and got[2].dtype == torch.float32
+    for g, w in zip(got, want):
+        _close_mamba(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mamba_decode(dtype):
+    """Six one-token steps, each from the reference's conv and ssm state:
+    the output and both new states."""
+    jp, tp = _mamba_params(32, 64, 8, 4, 2, dtype, 22)
+    r = _rng(23)
+    jconv = jnp.zeros((2, 3, 64), getattr(jnp, dtype))
+    jssm = jnp.zeros((2, 64, 8), jnp.float32)
+    for _ in range(6):
+        jx, tx = _pair(r.standard_normal((2, 1, 32)).astype(np.float32),
+                       dtype)
+        conv, ssm = _to_port(jconv, dtype), _to_port(jssm, "float32")
+        got = M.mamba_decode(tx, tp, conv, ssm)
+        want = JM.mamba_decode(jx, jp, jconv, jssm)
+        assert got[0].dtype == tx.dtype and got[2].dtype == torch.float32
+        for g, w in zip(got, want):
+            _close_mamba(g, w, dtype)
+        _, jconv, jssm = want
+
+
 # --------------------------- parameters --------------------------------------
 
 def _jax_params(cfg, seed=0):
@@ -241,7 +322,7 @@ def _jax_params(cfg, seed=0):
                         jax_init_params(cfg, jax.random.PRNGKey(seed)))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + [SSM])
 def test_param_tree_matches_the_reference(arch):
     """Same leaf paths, shapes and dtypes; the port's own draw has the
     reference's init rules (normal·1/√fan_in, zeros, ones)."""
@@ -249,18 +330,31 @@ def test_param_tree_matches_the_reference(arch):
     jtree = dict(flatten(_jax_params(jcfg)))
     port = dict(flatten(init_params(cfg, torch.Generator().manual_seed(0),
                                     "cpu")))
-    assert set(port) == set(jtree) == set(dict(flatten(param_defs(cfg))))
+    defs = dict(flatten(param_defs(cfg)))
+    assert set(port) == set(jtree) == set(defs)
     for path, t in port.items():
         a = jtree[path]
         assert tuple(t.shape) == a.shape, path
         assert str(t.dtype).removeprefix("torch.") == a.dtype.name, path
-        if path.endswith(("_scale", "_bias")):
+        if defs[path].init != "normal":
             np.testing.assert_array_equal(t.float().numpy(),
                                           a.astype(np.float32))
         else:
             fan_in = a.shape[-2]
             std = float(t.float().std())
             assert abs(std * np.sqrt(fan_in) - 1) < 0.1, (path, std)
+
+
+@pytest.mark.parametrize("arch", DENSE + [SSM])
+def test_param_defs_match_abstract_params_at_full_size(arch):
+    """At the published widths, with nothing allocated: the reference's
+    ``abstract_params`` leaf for leaf (names, shapes, dtypes)."""
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
+    want = {path: (tuple(a.shape), a.dtype.name)
+            for path, a in flatten(JT.abstract_params(jcfg))}
+    got = {path: (d.shape, "float32" if d.dtype == "float32" else cfg.dtype)
+           for path, d in flatten(param_defs(cfg))}
+    assert got == want
 
 
 def test_params_from_jax_checks_leaves():
@@ -298,9 +392,10 @@ def test_params_from_jax_checks_leaves():
 # gemma2 and starcoder2, so an end-to-end bf16 bar of 2e-2 would measure
 # that amplification, not the port.
 
-def _both(arch, dtype, impl="blocked"):
-    jcfg = jax_get_config(arch).reduced().with_(dtype=dtype, attn_impl=impl)
-    cfg = get_config(arch).reduced().with_(dtype=dtype, attn_impl=impl)
+def _both(arch, dtype, impl="blocked", use_mamba_kernel=False):
+    kw = dict(dtype=dtype, attn_impl=impl, use_mamba_kernel=use_mamba_kernel)
+    jcfg = jax_get_config(arch).reduced().with_(**kw)
+    cfg = get_config(arch).reduced().with_(**kw)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
     params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
                              device="cpu")
@@ -327,10 +422,30 @@ def test_forward_matches_jax_fp32(arch, impl):
     _close(got_last, want_last, "float32")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("use_mamba_kernel", [True, False])
+def test_ssm_forward_matches_jax_fp32(use_mamba_kernel):
+    """Reduced falcon-mamba-7b, forward_lm and make_prefill end to end,
+    against the reference with the same ``use_mamba_kernel`` (its Pallas
+    scan in interpret mode, or its chunked plain scan)."""
+    jcfg, cfg, jparams, params = _both(SSM, "float32",
+                                       use_mamba_kernel=use_mamba_kernel)
+    toks = _rng(12).integers(0, 256, (2, 16))
+    jbatch = {"tokens": jnp.asarray(toks, jnp.int32)}
+    want, _ = jax.jit(jax_make_forward(jcfg))(jparams, jbatch)
+    want_last = jax.jit(jax_make_prefill(jcfg))(jparams, jbatch)
+    with torch.inference_mode():
+        got, aux = make_forward(cfg)(params, {"tokens": torch.from_numpy(toks)})
+        got_last = make_prefill(cfg)(params, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    _close(got, want, "float32")
+    _close(got_last, want_last, "float32")
+
+
+@pytest.mark.parametrize("arch", DENSE + [SSM])
 def test_decode_step_matches_jax_fp32(arch):
     """Twelve decode steps into a 12-token cache (SWA configs keep a ring
-    of 8 slots, so it wraps); logits and caches against the reference."""
+    of 8 slots, so it wraps); logits and caches (k and v, or the conv
+    window and the ssm state) against the reference."""
     jcfg, cfg, jparams, params = _both(arch, "float32")
     toks = _rng(13).integers(0, 256, (2, 12))
     jcache = jax_init_cache(jcfg, 2, 12)
@@ -354,7 +469,7 @@ def test_decode_step_matches_jax_fp32(arch):
     # the cached k/v are activations (up to ~10 in gemma2): atol scales
     # with their max
     for sub in cache:
-        for name in ("k", "v"):
+        for name in cache[sub]:
             want = _np(jcache[sub][name])
             np.testing.assert_allclose(cache[sub][name].numpy(), want,
                                        atol=1e-4 * np.abs(want).max(),
@@ -377,7 +492,18 @@ def test_forward_matches_jax_bf16_sublayer_by_sublayer(arch, impl):
     """Each sub-layer of forward_lm fed the reference's input: its output
     within 2e-2 of max|output|; then the final norm and unembedding within
     2e-2 of max|logit|."""
-    jcfg, cfg, jparams, params = _both(arch, "bfloat16", impl)
+    _forward_bf16_sublayer_by_sublayer(arch, impl)
+
+
+@pytest.mark.parametrize("use_mamba_kernel", [True, False])
+def test_ssm_forward_matches_jax_bf16_sublayer_by_sublayer(use_mamba_kernel):
+    """As above, on reduced falcon-mamba-7b with either scan."""
+    _forward_bf16_sublayer_by_sublayer(SSM, "blocked", use_mamba_kernel)
+
+
+def _forward_bf16_sublayer_by_sublayer(arch, impl, use_mamba_kernel=False):
+    jcfg, cfg, jparams, params = _both(arch, "bfloat16", impl,
+                                       use_mamba_kernel)
     toks = _rng(12).integers(0, 256, (2, 16))
     jx = JT.embed_inputs(jcfg, jparams, {"tokens": jnp.asarray(toks,
                                                                jnp.int32)})
@@ -404,13 +530,20 @@ def test_forward_matches_jax_bf16_sublayer_by_sublayer(arch, impl):
     _close_rel(got, want, "logits")
 
 
-def _jax_decode_sub(jcfg, spec, x, p, ck, cv, pos):
+def _jax_decode_sub(jcfg, spec, x, p, c, pos):
     """The reference's decode scan body for one sub-layer
-    (repro/models/transformer.py decode_step_lm), from its own functions."""
+    (repro/models/transformer.py decode_step_lm), from its own functions;
+    ``c`` holds this layer's cache slices, and the new ones come back."""
     h = JT._norm(jcfg, x, p, "ln1")
-    h, ck, cv = JL.attention_decode(h, p, ck, cv, pos,
-                                    JT._variant(jcfg, spec), jcfg.rope_theta,
-                                    use_rope=jcfg.use_rope)
+    if spec.kind == "attn":
+        h, ck, cv = JL.attention_decode(h, p, c["k"], c["v"], pos,
+                                        JT._variant(jcfg, spec),
+                                        jcfg.rope_theta,
+                                        use_rope=jcfg.use_rope)
+        c = {"k": ck, "v": cv}
+    else:
+        h, conv, ssm = JM.mamba_decode(h, p, c["conv"], c["ssm"])
+        c = {"conv": conv, "ssm": ssm}
     if jcfg.post_norms:
         h = JT._norm(jcfg, h, p, "post_ln1")
     x = x + h
@@ -420,14 +553,14 @@ def _jax_decode_sub(jcfg, spec, x, p, ck, cv, pos):
         if jcfg.post_norms:
             h = JT._norm(jcfg, h, p, "post_ln2")
         x = x + h
-    return x, ck, cv
+    return x, c
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + [SSM])
 def test_decode_step_matches_jax_bf16_sublayer_by_sublayer(arch):
     """Twelve decode steps through a 12-token cache (the SWA ring wraps):
     at every step each sub-layer is fed the reference's input and cache,
-    and its output and updated cache slice are held within 2e-2 of their
+    and its output and updated cache slices are held within 2e-2 of their
     max; the step's logits, from the reference's last hidden state, too."""
     jcfg, cfg, jparams, params = _both(arch, "bfloat16")
     toks = _rng(13).integers(0, 256, (2, 12))
@@ -442,19 +575,21 @@ def test_decode_step_matches_jax_bf16_sublayer_by_sublayer(arch):
                 jp = jax.tree.map(lambda a: a[i],
                                   jparams["blocks"][f"sub{j}"])
                 jc = jcache[f"sub{j}"]
-                ck, cv = _to_port(jc["k"][i]), _to_port(jc["v"][i])
-                jy, jck, jcv = jsub(jcfg, spec, jx, jp, jc["k"][i],
-                                    jc["v"][i], jnp.int32(t))
+                c = {name: _to_port(a[i], a.dtype.name)
+                     for name, a in jc.items()}
+                jy, jnew = jsub(jcfg, spec, jx, jp,
+                                {name: a[i] for name, a in jc.items()},
+                                jnp.int32(t))
                 with torch.inference_mode():
                     y = T._decode_sub(cfg, spec, _to_port(jx),
                                       T._layer(params["blocks"][f"sub{j}"], i),
-                                      ck, cv, t)
+                                      c, t)
                 label = f"step {t} block {i} sub {j}"
                 _close_rel(y, jy, label)
-                _close_rel(ck, jck, label + " k")
-                _close_rel(cv, jcv, label + " v")
-                jcache[f"sub{j}"] = {"k": jc["k"].at[i].set(jck),
-                                     "v": jc["v"].at[i].set(jcv)}
+                for name in jc:
+                    _close_rel(c[name], jnew[name], f"{label} {name}")
+                jcache[f"sub{j}"] = {name: a.at[i].set(jnew[name])
+                                     for name, a in jc.items()}
                 jx = jy
         jh = JT._norm(jcfg, jx, jparams, "final")
         table = jparams["embed"] if jcfg.tie_embeddings else \
@@ -466,10 +601,11 @@ def test_decode_step_matches_jax_bf16_sublayer_by_sublayer(arch):
         _close_rel(got, want, f"step {t} logits")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + [SSM])
 def test_decode_replay_matches_forward(arch):
     """The decode step at each position gives the forward's logits there."""
-    cfg = get_config(arch).reduced().with_(dtype="float32", attn_impl="flash")
+    cfg = get_config(arch).reduced().with_(dtype="float32", attn_impl="flash",
+                                           use_mamba_kernel=True)
     params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     toks = torch.from_numpy(_rng(14).integers(0, 256, (2, 10)))
     with torch.inference_mode():
@@ -482,7 +618,7 @@ def test_decode_replay_matches_forward(arch):
                                        rtol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "falcon-mamba-7b",
+@pytest.mark.parametrize("arch", ["whisper-base", "jamba-1.5-large-398b",
                                   "qwen3-moe-30b-a3b", "llava-next-mistral-7b"])
 def test_other_families_name_their_slice(arch):
     """The reference's other families, built field for field in the port's

@@ -1,7 +1,8 @@
 """The port's serving layer against the JAX reference, on the CPU: the
 prefix-page oids and the router (copies, which must decide exactly as the
-reference's), the engine on TINY with the reference's weights (exactly the
-reference engine's tokens and router state), and the launcher's traffic."""
+reference's), the engine on TINY and on reduced falcon-mamba-7b with the
+reference's weights (exactly the reference engine's tokens and router
+state), and the launcher's traffic."""
 import contextlib
 import io
 
@@ -12,6 +13,7 @@ import torch
 
 from repro.core.cache import EvictionPolicy as JEvictionPolicy
 from repro.core.policies import DispatchPolicy as JDispatchPolicy
+from repro.configs import get_config as jax_get_config
 from repro.launch import serve as jax_launch
 from repro.models.config import ModelConfig as JModelConfig
 from repro.serve import PrefixAwareRouter as JRouter
@@ -64,10 +66,9 @@ def test_prefix_chain_is_block_aligned_and_content_addressed():
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "gemma2-27b",
-                                  "starcoder2-15b", "nemotron-4-15b"])
+                                  "starcoder2-15b", "nemotron-4-15b",
+                                  "falcon-mamba-7b"])
 def test_kv_bytes_per_token_matches_reference(arch):
-    from repro.configs import get_config as jax_get_config
-
     assert kv_bytes_per_token(get_config(arch)) == \
         jax_kv_bytes_per_token(jax_get_config(arch))
 
@@ -145,15 +146,17 @@ def test_router_eviction_keeps_index_coherent():
 
 # --------------------------- the engine --------------------------------------
 
-def _engines(impl="blocked", max_seq=64, n_replicas=2):
-    """The reference engine (its default blocked attention) and the port's,
-    on the reference's weights, with the port's forward running ``impl``."""
-    jeng = JServeEngine(JTINY, n_replicas=n_replicas,
+def _engines(impl="blocked", max_seq=64, n_replicas=2, jcfg=JTINY,
+             cfg=TINY):
+    """The reference engine (its default blocked attention and plain scan)
+    and the port's, on the reference's weights, with the port's forward
+    running ``impl`` (and ``cfg``'s scan)."""
+    jeng = JServeEngine(jcfg, n_replicas=n_replicas,
                         policy=JDispatchPolicy.MAX_COMPUTE_UTIL,
                         max_seq=max_seq)
-    params = params_from_jax(TINY, jax.tree.map(np.asarray, jeng.params),
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jeng.params),
                              device="cpu")
-    eng = ServeEngine(TINY.with_(attn_impl=impl), n_replicas=n_replicas,
+    eng = ServeEngine(cfg.with_(attn_impl=impl), n_replicas=n_replicas,
                       policy=DispatchPolicy.MAX_COMPUTE_UTIL,
                       max_seq=max_seq, device="cpu", params=params)
     return jeng, eng
@@ -172,7 +175,25 @@ def test_engine_serves_exactly_as_the_reference(impl):
     tokens, prefill and reused token counts, and router state.  The
     reference engine runs blocked attention (its default); the port's
     forward runs ``impl``."""
-    jeng, eng = _engines(impl)
+    _serve_both(*_engines(impl))
+
+
+@pytest.mark.parametrize("use_mamba_kernel", [True, False])
+def test_ssm_engine_serves_exactly_as_the_reference(use_mamba_kernel):
+    """As above on reduced falcon-mamba-7b in fp32 (its O(1) state cache
+    in decode); the port's forward runs the scan op or the plain chunked
+    path, and its forward logits equal its decode replay's."""
+    jcfg = jax_get_config("falcon-mamba-7b").reduced().with_(dtype="float32")
+    cfg = get_config("falcon-mamba-7b").reduced().with_(
+        dtype="float32", use_mamba_kernel=use_mamba_kernel)
+    jeng, eng = _engines(jcfg=jcfg, cfg=cfg)
+    _serve_both(jeng, eng)
+    for w in eng.waves:
+        torch.testing.assert_close(w.replay_logits, w.prefill_logits,
+                                   atol=1e-4, rtol=1e-4)
+
+
+def _serve_both(jeng, eng):
     for w, prompts in enumerate(_waves()):
         jreqs = [JRequest(rid=10 * w + i, prompt=p, max_new_tokens=4)
                  for i, p in enumerate(prompts)]
@@ -244,6 +265,24 @@ def test_launcher_prints_the_reference_lines():
     assert lines[:3] == jout.getvalue().splitlines()
     assert len(lines) == 4 and lines[3].startswith("[serve] on cpu")
     assert "attention flash" in lines[3]
+
+
+def test_launcher_prints_the_reference_lines_ssm():
+    """The same on reduced falcon-mamba-7b; the times line says which scan
+    ran (the plain version: the tensors lie on the CPU)."""
+    argv = ["--arch", "falcon-mamba-7b", "--reduced", "--requests", "8",
+            "--max-new", "2"]
+    jout = io.StringIO()
+    with contextlib.redirect_stdout(jout):
+        assert jax_launch.main(argv) == 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert launch.main(argv + ["--device", "cpu"]) == 0
+    lines = out.getvalue().splitlines()
+    assert lines[:3] == jout.getvalue().splitlines()
+    assert len(lines) == 4 and lines[3].startswith("[serve] on cpu")
+    assert "selective scan plain in the forward" in lines[3]
+    assert "attention" not in lines[3]
 
 
 def test_launcher_requests_are_the_reference_prompts():
