@@ -24,7 +24,8 @@ Phases, each reported on its own lines:
      weights from a seeded torch.Generator) through the launcher's code
      path (``repro_torch.launch.serve``): the reference launcher's 16
      requests in waves of 8 on 2 replicas.  The flash-attention kernel must
-     launch once per layer per wave (48 times); on the last wave's tokens
+     launch once per layer per wave (48 times), each time the tensor-core
+     kernel; on the last wave's tokens
      every layer's attention block is held, flash against the plain
      ``ref`` attention, on the flash forward's own hidden states.  Each
      wave's forward logits against the decode replay's, and the whole
@@ -43,9 +44,16 @@ Phases, each reported on its own lines:
      again with the weights in fp32 holds both comparisons within 2e-2 of
      max|logit|.
 
-Phase 2 runs the flash-attention kernel at the reference's eight test
-cases, the serving forward's shape and a long prefill, with
-``scaled_dot_product_attention`` timed beside it as a yardstick only; and
+Phase 2 runs the flash-attention kernels at the reference's eight test
+cases, bf16 cases of the tensor-core kernel (gemma2-27b's widths at S=512
+and S=4096, ragged tiles, a binding window, MQA, bidirectional), bf16
+cases of the SIMT kernel (head dims 20 and 136, storage off 16 bytes), the
+serving forward's shape and a long prefill, each with the kernel it took
+(each case must take the kernel ``kernel_path``'s rule gives it, the main
+shapes the tensor-core one), its TFLOP/s and share of the bound, the host
+cost of each layer of an eager call at the serving shape, and
+``scaled_dot_product_attention`` timed beside it as a yardstick only (with
+the mask, and with ``is_causal`` where the window does not bind); and
 the selective-scan kernel at the reference's four test cases, a chained
 pair of halves, the serving forward's shape and a long prefill.
 fp32 products on the card run in full fp32: TF32 is switched off for
@@ -96,9 +104,11 @@ MAMBA_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
 SERVE_ARCH, SERVE_REQUESTS, SERVE_REPLICAS = "h2o-danube-3-4b", 16, 2
 SSM_ARCH = "falcon-mamba-7b"
 SERVE_POLICY, SERVE_MAX_NEW, SERVE_SEED = "max-compute-util", 8, 0
-#: flash cases: (label, B, S, H, KV, D, causal, window, softcap, dtype);
-#: the reference's eight (tests/test_kernels.py), then the shapes the
-#: serving path gives the kernel at h2o-danube-3-4b's widths
+#: flash cases: (label, B, S, H, KV, D, causal, window, softcap, dtype[,
+#: offset]): the reference's eight (tests/test_kernels.py), cases beyond
+#: them, then the shapes the serving path gives the kernel at
+#: h2o-danube-3-4b's widths.  ``offset`` starts each tensor's storage that
+#: many elements past an aligned one.
 FLASH_CASES = [
     ("test", 2, 64, 4, 2, 16, True, 0, 0.0, "float32"),
     ("test SWA", 1, 128, 8, 2, 32, True, 32, 0.0, "float32"),
@@ -108,6 +118,28 @@ FLASH_CASES = [
     ("test bidirectional", 1, 64, 4, 2, 16, False, 0, 0.0, "float32"),
     ("test SWA+softcap", 2, 64, 4, 2, 16, True, 16, 30.0, "float32"),
     ("test MHA bf16", 2, 64, 8, 8, 16, True, 0, 0.0, "bfloat16"),
+    # bf16 inputs the tensor-core kernel takes, beyond the main shapes:
+    # gemma2-27b's widths (Dh 128, softcap 50, window 4096), ragged tiles
+    # at Dh 120, a window that binds at short S, MQA and bidirectional
+    ("tc gemma2-27b", 1, 512, 32, 16, 128, True, 4096, 50.0, "bfloat16"),
+    ("tc S=1", 8, 1, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
+    ("tc S=63", 8, 63, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
+    ("tc S=200", 8, 200, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
+    ("tc window 32", 2, 200, 32, 8, 120, True, 32, 0.0, "bfloat16"),
+    ("tc MQA", 1, 256, 32, 1, 120, True, 0, 0.0, "bfloat16"),
+    ("tc bidirectional", 1, 256, 16, 4, 128, False, 0, 0.0, "bfloat16"),
+    # gemma2-27b's prefill at S=4096, with its softcap and without (the
+    # softcap's tanh is the difference; SDPA has no softcap)
+    ("tc gemma2-27b S=4096", 1, 4096, 32, 16, 128, True, 4096, 50.0,
+     "bfloat16"),
+    ("tc gemma2-27b S=4096 no softcap", 1, 4096, 32, 16, 128, True, 4096,
+     0.0, "bfloat16"),
+    # bf16 the tensor-core kernel does not take, on the SIMT kernel: a head
+    # dim that is not a multiple of 8, one above 128, storage off 16 bytes
+    ("simt bf16 D=20", 1, 77, 4, 2, 20, True, 0, 0.0, "bfloat16"),
+    ("simt bf16 D=136", 2, 130, 4, 1, 136, True, 64, 30.0, "bfloat16"),
+    ("simt bf16 misaligned", 2, 150, 8, 2, 120, True, 64, 0.0, "bfloat16",
+     1),
     ("main/serve", 8, 96, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
     ("main/prefill", 1, 8192, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
 ]
@@ -232,18 +264,21 @@ def flash_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
 
 
 def flash_bound(b: int, s: int, h: int, kv: int, d: int, causal: bool,
-                window: int, dtype: str) -> tuple[float, str]:
+                window: int, softcap: float, dtype: str) -> tuple[float, str]:
     """Least time (ms) the card could take for one attention call, and what
     sets it: q, k, v read once and the output written once, over HBM
-    bandwidth; against 4·D FLOPs (two products) per valid (q, k) pair and
-    head over the peak for the inputs' type (bf16 tensor cores, or the fp32
-    pipes: an fp32 product in full precision has no tensor-core path)."""
+    bandwidth; against the larger of two operation counts: 4·D FLOPs (two
+    products) per valid (q, k) pair and head over the peak for the inputs'
+    type (bf16 tensor cores, or the fp32 pipes: an fp32 product in full
+    precision has no tensor-core path), and one exp per valid pair and
+    head, plus one tanh with a softcap, on the special-function units."""
     es = 2 if dtype == "bfloat16" else 4
     bytes_moved = es * d * (2 * b * h * s + 2 * b * kv * s)
-    flops = 4 * b * h * d * flash_pairs(s, s, causal, window)
+    pairs = b * h * flash_pairs(s, s, causal, window)
     peak = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = max(4 * d * pairs / peak,
+                pairs * (2 if softcap > 0 else 1) / SFU_EXP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -373,24 +408,74 @@ def phase_kernels() -> dict:
     return {"stack_rois": rows}
 
 
+def _expected_flash_path(d: int, dtype: str, offset: int) -> str:
+    """The kernel the wrapper must pick for these inputs (the cases'
+    tensors are dense, with strides of whole rows of heads): tensor cores
+    for bf16 with head_dim a multiple of 8 up to 128 whose storage starts
+    16-byte aligned, else the SIMT kernel."""
+    return ("wgmma" if dtype == "bfloat16" and d % 8 == 0 and d <= 128
+            and (2 * offset) % 16 == 0 else "simt")
+
+
+def _flash_host_costs(q, k, v) -> dict:
+    """Host time per call (µs, the host's clock over 200 calls) of each
+    layer of an eager flash call at these (B,S,H,D) inputs: the path
+    choice, the tensor-core and the SIMT C entry points alone (the
+    tensor-core one also encodes three tensor maps), the wrapper
+    ``flash_attention_fwd`` and the op in the model's layout."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = torch.empty_like(qt)
+
+    def entry(path):
+        args = fa._launch_args(path, qt, kt, vt, out, True, 0, 0.0)
+        fn = fa._entry(path)
+        return lambda: fn(*args)
+
+    calls = {"kernel_path": lambda: fa.kernel_path(qt, kt, vt),
+             "entry_wgmma": entry("wgmma"), "entry_simt": entry("simt"),
+             "flash_attention_fwd": lambda: fa.flash_attention_fwd(qt, kt,
+                                                                   vt),
+             "op": lambda: fa_ops.flash_attention(q, k, v)}
+    costs = {}
+    for name, fn in calls.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        costs[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    return costs
+
+
 def phase_flash_kernel() -> list[dict]:
-    """The flash-attention kernel against its plain version on the card,
-    with ``scaled_dot_product_attention`` timed beside it (a yardstick the
-    port never calls; none exists for a softcap)."""
+    """The flash-attention kernels against their plain version on the card,
+    with ``scaled_dot_product_attention`` timed beside them (a yardstick the
+    port never calls; none exists for a softcap): with the boolean mask, and
+    where the window does not bind also with ``is_causal`` (or no mask when
+    bidirectional), which computes the same function; ``library_ms`` is the
+    faster of the two."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     dev = torch.device("cuda", 0)
     rows = []
-    for i, (label, b, s, h, kv, d, causal, window, softcap, dtype) in \
-            enumerate(FLASH_CASES):
+    for i, (label, b, s, h, kv, d, causal, window, softcap, dtype,
+            *offset) in enumerate(FLASH_CASES):
+        offset = offset[0] if offset else 0
         rng = np.random.default_rng(200 + i)
         tdt = getattr(torch, dtype)
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
-                   .to(dev, tdt) for shape in ((b, s, h, d), (b, s, kv, d),
-                                               (b, s, kv, d)))
+        q, k, v = (torch.empty(int(np.prod(shape)) + offset, dtype=tdt,
+                               device=dev)[offset:].view(shape).copy_(
+            torch.from_numpy(rng.standard_normal(shape, np.float32)))
+                   for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         chunk = FLASH_PLAIN_Q_CHUNK if s > FLASH_PLAIN_Q_CHUNK else 0
         long = s > FLASH_PLAIN_Q_CHUNK
@@ -399,8 +484,16 @@ def phase_flash_kernel() -> list[dict]:
         plain = lambda: attention_ref(  # noqa: E731
             qt, kt, vt, causal=causal, window=window, softcap=softcap,
             q_chunk=chunk).transpose(1, 2)
+        before = {p: c.value for p, c in fa.path_launches.items()}
         got, want = kernel(), plain()
         torch.cuda.synchronize()
+        took = [p for p, c in fa.path_launches.items()
+                if c.value != before[p]]
+        path = took[0] if len(took) == 1 else f"?{took}"
+        expected = _expected_flash_path(d, dtype, offset)
+        if path != expected:
+            raise AssertionError(f"flash {label}: took the {path} kernel, "
+                                 f"expected {expected}")
         tol = 2e-2 if dtype == "bfloat16" else 2e-5
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"flash {label}: non-finite output")
@@ -414,7 +507,7 @@ def phase_flash_kernel() -> list[dict]:
         k_ms = device_ms(kernel, reps, inner)
         p_ms = device_ms(plain, reps, min(inner, 2) if long else inner)
         k_host = host_ms(kernel, reps, inner)
-        lib_ms = lib_err = None
+        lib_ms = lib_err = flag_ms = None
         if softcap == 0.0:
             qp = torch.arange(s, device=dev)[:, None]
             kp = torch.arange(s, device=dev)[None, :]
@@ -428,23 +521,55 @@ def phase_flash_kernel() -> list[dict]:
             lib_err = float((library().transpose(1, 2).float()
                              - want.float()).abs().max())
             lib_ms = device_ms(library, reps, inner)
+            if window == 0 or window >= s:
+                flagged = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+                lib_err = max(lib_err, float(
+                    (flagged().transpose(1, 2).float()
+                     - want.float()).abs().max()))
+                flag_ms = device_ms(flagged, reps, inner)
         bound_ms, bound_by = flash_bound(b, s, h, kv, d, causal, window,
-                                         dtype)
+                                         softcap, dtype)
+        flops = 4 * b * h * d * flash_pairs(s, s, causal, window)
         row = {"case": label, "shape": [b, s, h, kv, d], "causal": causal,
                "window": window, "softcap": softcap, "dtype": dtype,
-               "max_abs_err": max_abs, "tolerance": tol, "ms": k_ms,
-               "plain_ms": p_ms, "host_ms": k_host, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": lib_ms,
+               "offset": offset,
+               "path": path, "max_abs_err": max_abs, "tolerance": tol,
+               "ms": k_ms, "plain_ms": p_ms, "host_ms": k_host,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / k_ms,
+               "tflops": flops / (k_ms * 1e-3) / 1e12,
+               "library_ms": (None if lib_ms is None else
+                              min(x for x in (lib_ms, flag_ms)
+                                  if x is not None)),
+               "sdpa_mask_ms": lib_ms, "sdpa_flag_ms": flag_ms,
                "library_max_abs_err": lib_err}
         rows.append(row)
-        lib = ("none (softcap)" if lib_ms is None else
-               f"{lib_ms * 1e3:.3f} us (max abs err {lib_err:.3g})")
+        if lib_ms is None:
+            lib = "none (softcap)"
+        else:
+            lib = (f"{lib_ms * 1e3:.3f} us with the mask"
+                   + ("" if flag_ms is None else
+                      f", {flag_ms * 1e3:.3f} us with is_causal={causal}")
+                   + f" (max abs err {lib_err:.3g})")
         log(f"[kernel] flash_attention {label} B={b} S={s} H={h} KV={kv} "
             f"D={d} {dtype} causal={causal} window={window} "
-            f"softcap={softcap}: max abs err {max_abs:.3g} (tol {tol}) | "
-            f"device: kernel {k_ms * 1e3:.3f} us, plain {p_ms * 1e3:.3f} us, "
-            f"sdpa {lib}, bound {bound_ms * 1e3:.3f} us ({bound_by}) | "
-            f"eager per call: kernel {k_host * 1e3:.2f} us")
+            f"softcap={softcap}: {path} kernel, max abs err {max_abs:.3g} "
+            f"(tol {tol}) | device: kernel {k_ms * 1e3:.3f} us "
+            f"({row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of the "
+            f"bound), plain {p_ms * 1e3:.3f} us, sdpa {lib}, bound "
+            f"{bound_ms * 1e3:.3f} us ({bound_by}) | eager per call: kernel "
+            f"{k_host * 1e3:.2f} us")
+        if label == "main/serve":
+            row["host_costs_us"] = _flash_host_costs(q, k, v)
+            log("[kernel] flash_attention main/serve host us per call: "
+                + ", ".join(f"{n} {t:.2f}"
+                            for n, t in row["host_costs_us"].items()))
+    for label in ("main/serve", "main/prefill"):
+        row = next(r for r in rows if r["case"] == label)
+        if row["path"] != "wgmma":
+            raise AssertionError(f"flash {label} took the {row['path']} "
+                                 f"kernel, not the tensor-core one")
     return rows
 
 
@@ -746,7 +871,10 @@ def _launch_counters() -> dict:
     from repro_torch.kernels.stacking import stacking
 
     return {"stack_rois": stacking.launches,
-            "flash_attention": fa.launches, "mamba_scan": ms.launches}
+            "flash_attention": fa.launches,
+            "flash_attention/wgmma": fa.path_launches["wgmma"],
+            "flash_attention/simt": fa.path_launches["simt"],
+            "mamba_scan": ms.launches}
 
 
 def _reset_launches() -> None:
@@ -794,7 +922,8 @@ def phase_serve() -> dict:
                              params=params)
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
-    n_launch = _read_launches()["flash_attention"]
+    counts = _read_launches()
+    n_launch = counts["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
     for line in launch.report(eng, done, SERVE_REPLICAS, SERVE_POLICY):
         log(line)
@@ -810,6 +939,13 @@ def phase_serve() -> dict:
         f"{cfg.n_layers} x {len(eng.waves)} = {expected})")
     if n_launch != expected:
         failures.append(f"{n_launch} flash launches, expected {expected}")
+    log(f"[serve] flash_attention launches by kernel: tensor cores (wgmma) "
+        f"{counts['flash_attention/wgmma']}, SIMT "
+        f"{counts['flash_attention/simt']}")
+    if counts["flash_attention/wgmma"] != expected:
+        failures.append(f"{counts['flash_attention/wgmma']} of the flash "
+                        f"launches took the tensor-core kernel, expected "
+                        f"all {expected}")
     waves = []
     for i, w in enumerate(eng.waves):
         rel, same = _wave_agreement(w)
@@ -861,6 +997,7 @@ def phase_serve() -> dict:
         raise AssertionError("serve: " + "; ".join(failures))
     return {"arch": cfg.name, "params": n_params, "param_bytes": param_bytes,
             "init_s": init_s, "wall_s": wall_s, "launches": n_launch,
+            "launches_wgmma": counts["flash_attention/wgmma"],
             "waves": waves, "decode_ms_per_step": step_ms,
             "end_to_end": e2e, "layer_by_layer": layers,
             "decode_profile": prof,
@@ -980,6 +1117,7 @@ def phase_ssm_serve() -> dict:
             for r in done):
         failures.append("not every request got its tokens")
     expected = {"stack_rois": 0, "flash_attention": 0,
+                "flash_attention/wgmma": 0, "flash_attention/simt": 0,
                 "mamba_scan": cfg.n_layers * len(eng.waves)}
     log(f"[ssm] launches {counts} (mamba_scan: layers x waves = "
         f"{cfg.n_layers} x {len(eng.waves)} = {expected['mamba_scan']})")
@@ -1194,6 +1332,8 @@ def main(argv=None) -> int:
         "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
         "launches": serve["launches"],
+        "launches_wgmma": serve["launches_wgmma"],
+        "path": fa_main["path"],
         "shape": fa_main["shape"],
         "max_abs_err": max(fa_main["max_abs_err"], fa_prefill["max_abs_err"]),
         "ms": fa_main["ms"],
@@ -1202,9 +1342,13 @@ def main(argv=None) -> int:
         "bound_ms": fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
         "library_ms": fa_main["library_ms"],
+        "sdpa_mask_ms": fa_main["sdpa_mask_ms"],
+        "sdpa_flag_ms": fa_main["sdpa_flag_ms"],
+        "tflops": fa_main["tflops"],
         "prefill": {k: fa_prefill[k] for k in (
-            "shape", "max_abs_err", "ms", "plain_ms", "host_ms", "bound_ms",
-            "bound_by", "library_ms")},
+            "path", "shape", "max_abs_err", "ms", "plain_ms", "host_ms",
+            "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
+            "sdpa_flag_ms", "tflops")},
     })
     ms_rows = {r["case"]: r for r in kernels["mamba_scan"]}
     ms_main, ms_prefill = ms_rows["main/serve"], ms_rows["main/prefill"]

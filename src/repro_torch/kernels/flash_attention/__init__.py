@@ -1,2 +1,3 @@
-"""Flash attention (forward): the hand-written CUDA kernel, its wrapper,
-its plain PyTorch version and the op in the model's layout."""
+"""Flash attention (forward): the hand-written CUDA kernels, their wrapper,
+the plain PyTorch version they are held to and the op in the model's
+layout."""

@@ -2,9 +2,10 @@
 
 The reference's wrapper (``repro.kernels.flash_attention.ops``) pads
 head_dim to a 128-lane multiple and the sequence to its block size, and
-rescales q to undo the padded √D.  Those are TPU layout; the CUDA kernel
-takes any head_dim up to 256 and any Sq, Sk as they are, so nothing is
-padded and the scale is 1/√Dh of the true Dh.
+rescales q to undo the padded √D.  Those are TPU layout; the CUDA kernels
+take any head_dim up to 256 and any Sq, Sk as they are (the tensor-core
+kernel's TMA loads fill the ragged edges with zeros), so nothing is padded
+and the scale is 1/√Dh of the true Dh.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0) -> torch.Tensor:
     """q (B,S,H,Dh), k/v (B,S,KV,Dh) -> (B,S,H,Dh) in q's dtype.
 
-    CUDA tensors launch the hand-written kernel (or raise); CPU tensors take
+    CUDA tensors launch a hand-written kernel (or raise); CPU tensors take
     the plain version -- the only reason the plain version runs is that the
     tensors lie on the CPU."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))

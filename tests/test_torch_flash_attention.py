@@ -24,6 +24,12 @@ FA_CASES = [
     (1, 64, 4, 2, 16, False, 0, 0.0, "float32"),       # bidirectional
     (2, 64, 4, 2, 16, True, 16, 30.0, "float32"),      # SWA + softcap
     (2, 64, 8, 8, 16, True, 0, 0.0, "bfloat16"),       # MHA bf16
+    # bf16 at the dense models' head dims (the tensor-core kernel's inputs
+    # on the card), GQA group 4
+    (1, 64, 8, 2, 120, True, 32, 0.0, "bfloat16"),     # window 32
+    (2, 96, 8, 2, 128, True, 0, 50.0, "bfloat16"),     # softcap 50
+    (2, 96, 8, 2, 120, True, 0, 0.0, "bfloat16"),
+    (1, 64, 8, 2, 128, True, 32, 50.0, "bfloat16"),    # window + softcap
 ]
 
 
@@ -115,3 +121,54 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, k, v)
     assert fa.launches.value == before
+
+
+def _model_layout(b, s, h, kv, d, dtype=torch.bfloat16):
+    """(B,S,H,D) tensors seen as (B,H,S,D), as the model hands them over."""
+    return [torch.empty(b, s, n, d, dtype=dtype).transpose(1, 2)
+            for n in (h, kv, kv)]
+
+
+@pytest.mark.parametrize("d", [120, 128])
+def test_kernel_path_takes_tensor_cores_for_model_layout_bf16(d):
+    assert fa.kernel_path(*_model_layout(8, 96, 32, 8, d)) == "wgmma"
+    assert fa.kernel_path(*_model_layout(1, 1, 4, 1, d)) == "wgmma"
+
+
+def test_kernel_path_keeps_fp32_on_simt():
+    assert fa.kernel_path(*_model_layout(8, 96, 32, 8, 128,
+                                         torch.float32)) == "simt"
+
+
+@pytest.mark.parametrize("d", [20, 136])
+def test_kernel_path_keeps_other_head_dims_on_simt(d):
+    assert fa.kernel_path(*_model_layout(2, 64, 8, 2, d)) == "simt"
+
+
+def test_kernel_path_keeps_misaligned_storage_on_simt():
+    """A storage offset of one element breaks TMA's 16-byte alignment."""
+    q, k, v = _model_layout(2, 64, 8, 2, 128)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 64, 8, 128).transpose(1, 2)
+    assert fa.kernel_path(shifted, k, v) == "simt"
+    assert fa.kernel_path(q, k, v) == "wgmma"
+
+
+def test_kernel_path_keeps_broadcast_kv_on_simt():
+    """k and v expanded along the batch dim (stride 0) cannot be a TMA
+    map's stride; the SIMT kernel takes them."""
+    q, k, v = _model_layout(4, 64, 8, 2, 128)
+    k1, v1 = (t[:1].expand(4, -1, -1, -1) for t in (k, v))
+    assert k1.stride(0) == 0
+    assert fa.kernel_path(q, k1, v1) == "simt"
+    assert fa.kernel_path(q[:1], k1[:1], v1[:1]) == "wgmma"
+
+
+def test_kernel_path_takes_strided_views_of_a_fused_projection():
+    """q, k, v as head slices of one (B,S,H+2KV,D) projection: non-contiguous
+    views whose strides and offsets stay 16-byte multiples."""
+    qkv = torch.empty(2, 64, 8 + 2 * 2, 120, dtype=torch.bfloat16)
+    q, k, v = (qkv[:, :, a:b_].transpose(1, 2)
+               for a, b_ in ((0, 8), (8, 10), (10, 12)))
+    assert not q.is_contiguous()
+    assert fa.kernel_path(q, k, v) == "wgmma"

@@ -112,6 +112,11 @@ FA_CASES = [
     (1, 77, 2, 1, 256, False, 0, 0.0, torch.float32),
     (2, 200, 4, 2, 64, True, 50, 30.0, torch.bfloat16),
     (1, 300, 2, 2, 1, False, 70, 0.0, torch.float32),
+    # bf16 that the tensor-core kernel does not take: the SIMT kernel's
+    # bf16 instantiation (head_dim not a multiple of 8, or above 128)
+    (1, 77, 4, 2, 20, True, 0, 0.0, torch.bfloat16),
+    (2, 130, 4, 1, 136, True, 64, 30.0, torch.bfloat16),
+    (1, 90, 2, 2, 256, False, 0, 0.0, torch.bfloat16),
 ]
 
 
@@ -126,11 +131,16 @@ def _fa_inputs(b, s, h, kv, d, dtype, dev, seed=0):
 def test_flash_kernel_matches_plain(cuda, B, S, H, KV, D, causal, window,
                                     softcap, dtype):
     q, k, v = _fa_inputs(B, S, H, KV, D, dtype, cuda, seed=S + D)
+    path = fa.kernel_path(*(t.transpose(1, 2) for t in (q, k, v)))
+    assert path == ("simt" if dtype == torch.float32 or D % 8 or D > 128
+                    else "wgmma")
     before = fa.launches.value
+    before_path = fa.path_launches[path].value
     got = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
     torch.cuda.synchronize()
     assert fa.launches.value == before + 1
+    assert fa.path_launches[path].value == before_path + 1
     assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
     want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), causal=causal, window=window,
@@ -149,6 +159,121 @@ def test_flash_kernel_rows_without_a_valid_key_are_zero(cuda):
     torch.cuda.synchronize()
     assert bool((want[:, :, 55:] == 0).all())
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+# the tensor-core kernel: bf16, head_dim a multiple of 8 up to 128
+TC_D = [64, 120, 128]
+TC_S = [1, 63, 96, 200, 1000]
+TC_GROUP = [1, 4, 8]
+TC_WINDOW = [0, 32, 4096]          # 4096 >= every S: the window never binds
+TC_SOFTCAP = [0.0, 50.0]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("softcap", TC_SOFTCAP)
+@pytest.mark.parametrize("window", TC_WINDOW)
+@pytest.mark.parametrize("group", TC_GROUP)
+@pytest.mark.parametrize("S", TC_S)
+@pytest.mark.parametrize("D", TC_D)
+def test_flash_tensor_core_kernel_matches_plain(cuda, D, S, group, window,
+                                                softcap, causal):
+    kv = 2
+    q, k, v = _fa_inputs(2, S, kv * group, kv, D, torch.bfloat16, cuda,
+                         seed=S * 7 + D + group)
+    args = [t.transpose(1, 2) for t in (q, k, v)]
+    assert fa.kernel_path(*args) == "wgmma"
+    before = fa.path_launches["wgmma"].value
+    got = fa.flash_attention_fwd(*args, causal=causal, window=window,
+                                 softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa.path_launches["wgmma"].value == before + 1
+    want = attention_ref(*args, causal=causal, window=window,
+                         softcap=softcap)
+    assert got.dtype == torch.bfloat16 and got.stride() == args[0].stride()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_tensor_core_rows_without_a_valid_key_are_zero(cuda):
+    """bf16 at head_dim 128, Sq > Sk under a causal window: rows
+    q >= Sk + window - 1 see no key and are exactly 0."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .to(cuda, torch.bfloat16)
+               for s in ((1, 4, 300, 128), (1, 2, 40, 128), (1, 2, 40, 128)))
+    assert fa.kernel_path(q, k, v) == "wgmma"
+    got = fa.flash_attention_fwd(q, k, v, causal=True, window=16)
+    want = attention_ref(q, k, v, causal=True, window=16)
+    torch.cuda.synchronize()
+    assert bool((got[:, :, 55:] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_tensor_core_takes_strided_views_uncopied(cuda):
+    """q, k, v as head slices of one fused (B,S,H+2KV,D) projection go in
+    as they are: the kernel reads them in place (a write to the projection
+    shows in the result) and matches the plain version."""
+    qkv = _fa_inputs(2, 150, 8 + 2 * 2, 1, 120, torch.bfloat16, cuda,
+                     seed=11)[0]
+    q, k, v = (qkv[:, :, a:b].transpose(1, 2)
+               for a, b in ((0, 8), (8, 10), (10, 12)))
+    assert not q.is_contiguous() and fa.kernel_path(q, k, v) == "wgmma"
+    got = fa.flash_attention_fwd(q, k, v, causal=True, window=64)
+    torch.testing.assert_close(
+        got.float(), attention_ref(q, k, v, causal=True, window=64).float(),
+        atol=2e-2, rtol=2e-2)
+    qkv[:, :, 10:12] = 0            # v = 0: the output must follow
+    torch.testing.assert_close(
+        fa.flash_attention_fwd(q, k, v, causal=True, window=64).float(),
+        torch.zeros(q.shape, device=cuda), atol=0, rtol=0)
+
+
+def _misaligned(t):
+    """t's values in a copy whose storage starts one element (2 bytes)
+    past a 16-byte boundary, as a (B,H,S,D) view of (B,S,H,D)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out.transpose(1, 2)
+
+
+@pytest.mark.parametrize("layout", ["misaligned", "broadcast kv"])
+def test_flash_kernel_bf16_that_tma_cannot_read_takes_simt(cuda, layout):
+    """bf16 at head_dim 120 that TMA cannot read as it lies -- a storage
+    offset off 16 bytes, or k and v expanded along the batch (stride 0)
+    -- goes to the SIMT kernel uncopied and matches the plain version."""
+    q, k, v = _fa_inputs(3, 150, 8, 2, 120, torch.bfloat16, cuda, seed=12)
+    if layout == "misaligned":
+        args = [_misaligned(t) for t in (q, k, v)]
+        assert all(t.data_ptr() % 16 for t in args)
+    else:
+        args = [q.transpose(1, 2)] + [
+            t[:1].transpose(1, 2).expand(3, -1, -1, -1) for t in (k, v)]
+        assert args[1].stride(0) == 0
+    assert fa.kernel_path(*args) == "simt"
+    before = fa.path_launches["simt"].value
+    got = fa.flash_attention_fwd(*args, causal=True, window=64,
+                                 softcap=30.0)
+    torch.cuda.synchronize()
+    assert fa.path_launches["simt"].value == before + 1
+    want = attention_ref(*args, causal=True, window=64, softcap=30.0)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_kernel_path_counters_move(cuda):
+    """A bf16 call at head_dim 120 counts as wgmma, an fp32 one as simt;
+    both count in ``launches``."""
+    before = {p: c.value for p, c in fa.path_launches.items()}
+    total = fa.launches.value
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _fa_inputs(1, 70, 4, 2, 120, dtype, cuda)
+        fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.path_launches["wgmma"].value == before["wgmma"] + 1
+    assert fa.path_launches["simt"].value == before["simt"] + 1
+    assert fa.launches.value == total + 2
 
 
 def test_flash_kernel_q_chunked_plain_version_agrees(cuda):
@@ -175,20 +300,43 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_serve_forward_launches_flash_once_per_layer(cuda):
+    """The bf16 forward of reduced h2o-danube-3-4b launches the flash
+    kernel once per layer, each time on the tensor-core path; its logits
+    agree with the plain ``ref`` attention's within 2e-2 of max|logit|, and
+    each layer's attention block, flash against ref on the flash forward's
+    own hidden states, within 2e-2 of max|output|."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, make_forward
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
 
     cfg = get_config("h2o-danube-3-4b").reduced().with_(attn_impl="flash")
     params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
     tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda)
     before = fa.launches.value
+    before_tc = fa.path_launches["wgmma"].value
     logits, _ = make_forward(cfg)(params, {"tokens": tokens})
     torch.cuda.synchronize()
     assert fa.launches.value - before == cfg.n_layers
+    assert fa.path_launches["wgmma"].value - before_tc == cfg.n_layers
     ref, _ = make_forward(cfg.with_(attn_impl="ref"))(params,
                                                       {"tokens": tokens})
     scale = float(ref.abs().max())
     torch.testing.assert_close(logits, ref, atol=2e-2 * scale, rtol=0)
+    spec = cfg.pattern[0]
+    with torch.inference_mode():
+        x = T.embed_inputs(cfg, params, {"tokens": tokens})
+        pos = torch.arange(x.shape[1], device=cuda)
+        for i in range(cfg.n_blocks):
+            p = T._layer(params["blocks"]["sub0"], i)
+            h = T._norm(cfg, x, p, "ln1")
+            var = T._variant(cfg, spec)
+            got, want = (L.attention_block(h, p, pos, var, cfg.rope_theta,
+                                           impl=impl)
+                         for impl in ("flash", "ref"))
+            torch.testing.assert_close(
+                got, want, atol=2e-2 * float(want.abs().max()), rtol=0)
+            x = T._apply_sub(cfg, spec, x, p, pos)
 
 
 def test_serve_engine_forward_matches_decode_replay(cuda):
