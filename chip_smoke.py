@@ -44,10 +44,14 @@ Phases, each reported on its own lines:
      again with the weights in fp32 holds both comparisons within 2e-2 of
      max|logit|.
 
-Phase 2 runs the flash-attention kernels at the reference's eight test
-cases, bf16 cases of the tensor-core kernel (gemma2-27b's widths at S=512
-and S=4096, ragged tiles, a binding window, MQA, bidirectional), bf16
-cases of the SIMT kernel (head dims 20 and 136, storage off 16 bytes), the
+Phase 2 runs the stacking kernel at the reference's test shapes and the
+main path's (N=8 and N=32 at 100x100), each beside the launch floor (the
+kernel at N=1 on one pixel, timed alike), with the host cost of each layer
+of an eager call at the flat shape; the flash-attention kernels at the
+reference's eight test cases, bf16 cases of the tensor-core kernel
+(gemma2-27b's widths at S=512 and S=4096, ragged tiles, a binding window,
+MQA, bidirectional), bf16 cases of the SIMT kernel (head dims 20 and 136,
+storage off 16 bytes), the
 serving forward's shape and a long prefill, each with the kernel it took
 (each case must take the kernel ``kernel_path``'s rule gives it, the main
 shapes the tensor-core one), its TFLOP/s and share of the bound, the host
@@ -55,7 +59,9 @@ cost of each layer of an eager call at the serving shape, and
 ``scaled_dot_product_attention`` timed beside it as a yardstick only (with
 the mask, and with ``is_causal`` where the window does not bind); and
 the selective-scan kernel at the reference's four test cases, a chained
-pair of halves, the serving forward's shape and a long prefill.
+pair of halves, the serving forward's shape and a long prefill, each with
+the path the shape rule gave it (``kernel_path``) and its share of the
+bound, and at the two main shapes the other path's time beside it.
 fp32 products on the card run in full fp32: TF32 is switched off for
 matmuls and cuDNN before anything runs.
 
@@ -377,6 +383,12 @@ def phase_kernels() -> dict:
             args = [args[0], zn, on, zn, zn]
         cases.append((f"main/{label} N={n} {h}x{w}", args, True, False))
 
+    # the launch floor: the kernel at N=1 on one pixel, timed as the cases
+    # are (one block, one load per input), the least a call can cost here
+    floor_args = _stacking_inputs(1, 1, 1, 99, dev)
+    floor_ms = device_ms(lambda: stack_rois_fwd(*floor_args))
+    log(f"[kernel] stack_rois launch floor (N=1 1x1, same graph harness): "
+        f"{floor_ms * 1e3:.3f} us")
     rows = []
     for label, args, mean, exact in cases:
         got = stack_rois_fwd(*args, mean=mean)
@@ -395,17 +407,68 @@ def phase_kernels() -> dict:
                "max_abs_err": max_abs, "max_rel_err": max_rel,
                "ms": k_ms, "plain_ms": p_ms, "host_ms": k_host,
                "plain_host_ms": p_host, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "bound_by": bound_by, "launch_floor_ms": floor_ms}
         rows.append(row)
         log(f"[kernel] stack_rois {label}: max abs err {max_abs:.3g} "
             f"max rel err {max_rel:.3g} | device: kernel "
-            f"{k_ms * 1e3:.3f} us, plain {p_ms * 1e3:.3f} us, bound "
+            f"{k_ms * 1e3:.3f} us ({k_ms / floor_ms:.2f}x the launch "
+            f"floor), plain {p_ms * 1e3:.3f} us, bound "
             f"{bound_ms * 1e3:.3f} us ({bound_by}) | eager per call: kernel "
             f"{k_host * 1e3:.2f} us, plain {p_host * 1e3:.2f} us")
+        if label.startswith("main/flat"):
+            row["host_costs_us"] = _stacking_host_costs(*args)
+            log("[kernel] stack_rois main/flat host us per call: "
+                + ", ".join(f"{n} {t:.2f}"
+                            for n, t in row["host_costs_us"].items()))
     log("[kernel] stack_rois: no single PyTorch call computes this function "
         "(calibrate + bilinear shift + coadd), so there is no library "
         "yardstick (library_ms null)")
     return {"stack_rois": rows}
+
+
+def _host_us(calls: dict, n: int = 2000) -> dict:
+    """Host time per call (µs, the host's clock over ``n`` calls after a
+    warm-up) of each named zero-argument function."""
+    costs = {}
+    for name, fn in calls.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        costs[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return costs
+
+
+def _stacking_host_costs(rois, sky, cal, dy, dx) -> dict:
+    """Host time per call (µs) of each layer of an eager stacking call at
+    these inputs: the wrapper's checks, the output's allocation, the
+    stream lookup (the raw one the wrapper makes, and through a Stream
+    object, for comparison), the C entry point alone (``data_ptr`` reads
+    included), the wrapper ``stack_rois_fwd`` and the op
+    ``ops.stack_rois``."""
+    from repro_torch.kernels.stacking import ops as st_ops
+    from repro_torch.kernels.stacking import stacking as st
+
+    n, h, w = rois.shape
+    idx = rois.get_device()
+    out = torch.empty((h, w), dtype=torch.float32, device=rois.device)
+    stream = torch.cuda.current_stream(rois.device).cuda_stream
+    entry = st._entry()
+    return _host_us({
+        "checks": lambda: st.check_inputs(rois, sky, cal, dy, dx),
+        "new_empty": lambda: rois.new_empty((h, w)),
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(idx),
+        "stream object": lambda: torch.cuda.current_stream(
+            rois.device).cuda_stream,
+        "entry": lambda: entry(rois.data_ptr(), sky.data_ptr(),
+                               cal.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                               out.data_ptr(), n, h, w, 1, idx, stream),
+        "stack_rois_fwd": lambda: st.stack_rois_fwd(rois, sky, cal, dy, dx,
+                                                    mean=True),
+        "op": lambda: st_ops.stack_rois(rois, sky, cal, dy, dx, mean=True)})
 
 
 def _expected_flash_path(d: int, dtype: str, offset: int) -> str:
@@ -439,17 +502,7 @@ def _flash_host_costs(q, k, v) -> dict:
              "flash_attention_fwd": lambda: fa.flash_attention_fwd(qt, kt,
                                                                    vt),
              "op": lambda: fa_ops.flash_attention(q, k, v)}
-    costs = {}
-    for name, fn in calls.items():
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        costs[name] = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
-    return costs
+    return _host_us(calls, 200)
 
 
 def phase_flash_kernel() -> list[dict]:
@@ -614,6 +667,24 @@ def _scan_err(label: str, got, want) -> float:
     return worst
 
 
+def _scan_path_ms(path: str, arrs: dict, want, label: str,
+                  reps: tuple[int, int]) -> float:
+    """Device time per call of the scan kernel on ``path`` whatever the
+    shape rule says, after holding its result to the plain version's
+    ``want``.  Its launches are counted as any other (phase 2 runs before
+    the counters are reset for the main path)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+
+    rule = ms.kernel_path
+    ms.kernel_path = lambda b, i: path
+    try:
+        _scan_err(f"{label} on the {path} path", ms.mamba_scan_fwd(**arrs),
+                  want)
+        return device_ms(lambda: ms.mamba_scan_fwd(**arrs), *reps)
+    finally:
+        ms.kernel_path = rule
+
+
 def phase_mamba_kernel() -> list[dict]:
     """The selective-scan kernel against its plain version on the card (no
     single PyTorch call computes a selective scan: no library yardstick)."""
@@ -627,23 +698,42 @@ def phase_mamba_kernel() -> list[dict]:
         arrs = _scan_inputs(b, s, i, n, h0, 300 + k, dev)
         kernel = lambda: ms_ops.mamba_scan(**arrs)  # noqa: E731
         plain = lambda: mamba_scan_ref(**arrs)  # noqa: E731
+        before = {p: c.value for p, c in ms.path_launches.items()}
         got, want = kernel(), plain()
         torch.cuda.synchronize()
+        took = [p for p, c in ms.path_launches.items()
+                if c.value != before[p]]
+        path = took[0] if len(took) == 1 else f"?{took}"
+        if path != ms.kernel_path(b, i):
+            raise AssertionError(f"scan {label}: took the {path} path, the "
+                                 f"rule gives {ms.kernel_path(b, i)}")
         max_abs = _scan_err(label, got, want)
         long = s > 1024
-        k_ms = device_ms(kernel, *((10, 10) if long else (30, 50)))
+        reps = (10, 10) if long else (30, 50)
+        k_ms = device_ms(kernel, *reps)
         # the plain version is a loop over S: a few repetitions
         p_ms = device_ms(plain, *((3, 1) if long else (5, 3)))
         k_host = host_ms(kernel, *((5, 5) if long else (30, 50)))
         bound_ms, bound_by = mamba_scan_bound(b, s, i, n, h0)
-        rows.append({"case": label, "shape": [b, s, i, n], "h0": h0,
-                     "max_abs_err": max_abs, "tolerance": MAMBA_TOL,
-                     "ms": k_ms, "plain_ms": p_ms, "host_ms": k_host,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None})
+        row = {"case": label, "shape": [b, s, i, n], "h0": h0,
+               "path": path, "max_abs_err": max_abs, "tolerance": MAMBA_TOL,
+               "ms": k_ms, "plain_ms": p_ms, "host_ms": k_host,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / k_ms, "library_ms": None}
+        other = ""
+        if label.startswith("main/"):
+            # the path the rule did not pick, on the same inputs: the
+            # reason for the rule at the main shapes
+            row["other_path"] = next(p for p in ms.LANES if p != path)
+            row["other_path_ms"] = _scan_path_ms(row["other_path"], arrs,
+                                                 want, label, reps)
+            other = (f", the {row['other_path']} path "
+                     f"{row['other_path_ms'] * 1e3:.3f} us")
+        rows.append(row)
         log(f"[kernel] mamba_scan {label} B={b} S={s} I={i} N={n} "
-            f"h0={h0}: max abs err {max_abs:.3g} (atol 2e-4, rtol 1e-3, y "
-            f"and h_last) | device: kernel {k_ms * 1e3:.3f} us, plain "
+            f"h0={h0}: {path} path, max abs err {max_abs:.3g} (atol 2e-4, "
+            f"rtol 1e-3, y and h_last) | device: kernel {k_ms * 1e3:.3f} us "
+            f"({row['bound_share']:.3f} of the bound){other}, plain "
             f"{p_ms * 1e3:.3f} us, bound {bound_ms * 1e3:.3f} us "
             f"({bound_by}) | eager per call: kernel {k_host * 1e3:.2f} us")
     # state chaining (tests/test_kernels.py): two halves, h_last carried
@@ -874,7 +964,9 @@ def _launch_counters() -> dict:
             "flash_attention": fa.launches,
             "flash_attention/wgmma": fa.path_launches["wgmma"],
             "flash_attention/simt": fa.path_launches["simt"],
-            "mamba_scan": ms.launches}
+            "mamba_scan": ms.launches,
+            "mamba_scan/pair": ms.path_launches["pair"],
+            "mamba_scan/quad": ms.path_launches["quad"]}
 
 
 def _reset_launches() -> None:
@@ -1070,6 +1162,7 @@ def _layer_by_layer(cfg, params, tokens) -> list[dict]:
 def phase_ssm_serve() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.device import describe
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
     from repro_torch.launch import serve as launch
     from repro_torch.models import init_params
     from repro_torch.models.transformer import flatten
@@ -1118,9 +1211,14 @@ def phase_ssm_serve() -> dict:
         failures.append("not every request got its tokens")
     expected = {"stack_rois": 0, "flash_attention": 0,
                 "flash_attention/wgmma": 0, "flash_attention/simt": 0,
-                "mamba_scan": cfg.n_layers * len(eng.waves)}
+                "mamba_scan": cfg.n_layers * len(eng.waves),
+                "mamba_scan/pair": 0, "mamba_scan/quad": 0}
+    for w in eng.waves:   # each wave's forward: one launch per layer
+        path = ms.kernel_path(w.tokens.shape[0], cfg.d_inner)
+        expected[f"mamba_scan/{path}"] += cfg.n_layers
     log(f"[ssm] launches {counts} (mamba_scan: layers x waves = "
-        f"{cfg.n_layers} x {len(eng.waves)} = {expected['mamba_scan']})")
+        f"{cfg.n_layers} x {len(eng.waves)} = {expected['mamba_scan']}, "
+        f"each on the path the shape rule gives its wave)")
     if counts != expected:
         failures.append(f"launches {counts}, expected {expected}")
     waves = []
@@ -1187,6 +1285,8 @@ def phase_ssm_serve() -> dict:
     return {"arch": cfg.name, "params": n_params, "param_bytes": param_bytes,
             "init_s": init_s, "init_peak_memory_bytes": init_peak,
             "wall_s": wall_s, "launches": counts["mamba_scan"],
+            "launches_by_path": {p: counts[f"mamba_scan/{p}"]
+                                 for p in ms.LANES},
             "launches_all": counts, "waves": waves,
             "decode_ms_per_step": step_ms, "end_to_end_kernel_vs_plain": e2e,
             "layer_by_layer": layers, "fp32": fp32, "decode_profile": prof,
@@ -1305,6 +1405,8 @@ def main(argv=None) -> int:
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
+    stack_row = next(r for r in kernels["stack_rois"]
+                     if r["case"].startswith("main/stack"))
     main_err = max(r["max_abs_err"] for r in kernels["stack_rois"]
                    if r["case"].startswith("main/"))
     line = {"kernels": [{
@@ -1323,6 +1425,10 @@ def main(argv=None) -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "launch_floor_ms": main_row["launch_floor_ms"],
+        "pipeline_stack": {k: stack_row[k] for k in (
+            "shape", "max_abs_err", "ms", "host_ms", "bound_ms",
+            "bound_by")},
     }]}
     fa_rows = {r["case"]: r for r in kernels["flash_attention"]}
     fa_main, fa_prefill = fa_rows["main/serve"], fa_rows["main/prefill"]
@@ -1358,6 +1464,9 @@ def main(argv=None) -> int:
         "source": MAMBA_SOURCE,
         "replaces": MAMBA_TPU_KERNEL,
         "launches": ssm["launches"],
+        "launches_by_path": ssm["launches_by_path"],
+        "path": ms_main["path"],
+        "bound_share": ms_main["bound_share"],
         "shape": ms_main["shape"],
         "max_abs_err": max(ms_main["max_abs_err"], ms_prefill["max_abs_err"]),
         "ms": ms_main["ms"],
@@ -1367,8 +1476,8 @@ def main(argv=None) -> int:
         "bound_by": ms_main["bound_by"],
         "library_ms": None,
         "prefill": {k: ms_prefill[k] for k in (
-            "shape", "max_abs_err", "ms", "plain_ms", "host_ms", "bound_ms",
-            "bound_by", "library_ms")},
+            "path", "shape", "max_abs_err", "ms", "plain_ms", "host_ms",
+            "bound_ms", "bound_by", "bound_share", "library_ms")},
     })
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

@@ -3,9 +3,10 @@
 
 The kernel replaces the TPU kernel ``repro.kernels.mamba_scan.mamba_scan.
 _scan_kernel``; the source's head note says what bounds it and how its
-design answers that.  ``mamba_scan_fwd`` checks its inputs, allocates y and
-h_last, launches on PyTorch's current stream and counts the launch.  It
-takes CUDA tensors only: the CPU's path is ``ref.py``, chosen in
+design answers that.  ``mamba_scan_fwd`` checks its inputs, picks the
+kernel's lane layout with ``kernel_path``, allocates y and h_last, launches
+on PyTorch's current stream and counts the launch.  It takes CUDA tensors
+only: the CPU's path is ``ref.py``, chosen in
 ``ops.py``.
 """
 from __future__ import annotations
@@ -20,12 +21,20 @@ from ..build import LaunchCounter, load
 
 #: launches of the selective-scan kernel (``launches.value``; ``reset()``)
 launches = LaunchCounter()
+#: launches per lane layout, by ``kernel_path``'s answer
+path_launches = {"pair": LaunchCounter(), "quad": LaunchCounter()}
+#: lanes of a warp that share one (b, i) channel, per path
+LANES = {"pair": 2, "quad": 4}
+#: below this many (b, i) channels, two lanes per channel leave the SMs
+#: short of warps, and four lanes share each channel
+QUAD_BELOW_CHANNELS = 16384
 
 #: the largest state size N the kernel takes (the states live in registers)
 MAX_STATE = 32
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 13 + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_longlong] * 13 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p])
 
 
 @functools.cache
@@ -35,6 +44,16 @@ def _entry():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_path(batch: int, inner: int) -> str:
+    """Which lane layout takes a scan over ``batch`` x ``inner`` channels:
+    ``"pair"``, two lanes per channel each holding half its states, where
+    there are channels enough to fill the card (the serving waves: B=8,
+    I=8192); else ``"quad"``, four lanes per channel each holding a quarter
+    of the states (a one-row prefill).  At B·I = 16,384 the two tie on the
+    H100 (``chip_smoke.py`` times both at the main shapes)."""
+    return "quad" if batch * inner < QUAD_BELOW_CHANNELS else "pair"
 
 
 def mamba_scan_fwd(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -76,15 +95,18 @@ def mamba_scan_fwd(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h_last = torch.empty((b, i, n), dtype=torch.float32, device=u.device)
     h0_ptr, h0_sb, h0_si = ((h0.data_ptr(), h0.stride(0), h0.stride(1))
                             if h0 is not None else (None, 0, 0))
+    path = kernel_path(b, i)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = _entry()(
         u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), D.data_ptr(), h0_ptr, y.data_ptr(), h_last.data_ptr(),
         b, s, i, n, u.stride(0), u.stride(1), dt.stride(0), dt.stride(1),
         A.stride(0), Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
-        h0_sb, h0_si, y.stride(0), y.stride(1), u.device.index, stream)
+        h0_sb, h0_si, y.stride(0), y.stride(1), LANES[path],
+        u.device.index, stream)
     if err != 0:
-        raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"mamba_scan {path} kernel launch failed: CUDA "
+                           f"error {err}")
     launches.add()
+    path_launches[path].add()
     return y, h_last

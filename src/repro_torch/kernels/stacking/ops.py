@@ -16,7 +16,8 @@ def stack_rois(rois: torch.Tensor, sky: torch.Tensor, cal: torch.Tensor,
     CUDA tensors launch the hand-written kernel (or raise); CPU tensors take
     the plain version -- the only reason the plain version runs is that the
     tensors lie on the CPU."""
-    rois, sky, cal, dy, dx = (_fp32(t) for t in (rois, sky, cal, dy, dx))
+    rois, sky, cal, dy, dx = (_fp32(rois), _fp32(sky), _fp32(cal),
+                              _fp32(dy), _fp32(dx))
     if rois.is_cuda:
         return stack_rois_fwd(rois, sky, cal, dy, dx, mean=mean)
     out = stack_rois_ref(rois, sky, cal, dy, dx)

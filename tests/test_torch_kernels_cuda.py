@@ -69,6 +69,47 @@ def test_stacking_kernel_exact_sum_without_shift(cuda):
     assert torch.equal(got, rois.sum(0))
 
 
+#: ROI counts around the kernel's group of 8 and its splits of N across
+#: thread rows (1 group, 2, 4 or 8 rows), by image shapes around its
+#: 64-pixel blocks and the edge rows and columns
+GRID_N = [1, 7, 8, 9, 32, 33, 300]
+GRID_HW = [(1, 1), (1, 100), (100, 1), (100, 100), (24, 40), (129, 257)]
+
+
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("H,W", GRID_HW)
+@pytest.mark.parametrize("N", GRID_N)
+def test_stacking_kernel_grid_matches_plain(cuda, N, H, W, mean):
+    arrs = _inputs(N, H, W, seed=N + H + W, dev=cuda)
+    got = stacking.stack_rois_fwd(*arrs, mean=mean)
+    want = stack_rois_ref(*arrs)
+    if mean:
+        want = want / N
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("shift", [0.0, 0.5])
+@pytest.mark.parametrize("H,W", GRID_HW)
+def test_stacking_kernel_edges_repeat_row_and_column_zero(cuda, H, W, shift):
+    """One hot pixel in each corner and one on the last pixel of every
+    64-pixel block (the next block reads it as a neighbour): with dy = dx
+    in {0, 1/2} every weight and sum is exact in fp32, so the kernel must
+    give the plain version's bits, row 0 and column 0 repeated at the
+    edge."""
+    roi = torch.zeros(1, H, W, device=cuda)
+    for r, c in ((0, 0), (0, W - 1), (H - 1, 0), (H - 1, W - 1)):
+        roi[0, r, c] = 1.0
+    roi.view(-1)[63::64] = 1.0
+    z, o = torch.zeros(1, device=cuda), torch.ones(1, device=cuda)
+    f = torch.full((1,), shift, device=cuda)
+    got = stacking.stack_rois_fwd(roi, z, o, f, f)
+    want = stack_rois_ref(roi, z, o, f, f)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_stacking_kernel_refuses_mixed_devices(cuda):
     arrs = _inputs(3, 8, 8, seed=0, dev=cuda)
     arrs[1] = arrs[1].cpu()
@@ -449,6 +490,77 @@ def test_scan_kernel_state_chaining(cuda):
     y2, h2 = ms.mamba_scan_fwd(**second, h0=h1)
     torch.cuda.synchronize()
     _ms_close((torch.cat([y1, y2], 1), h2), (y_full, h_full))
+
+
+#: lengths around the kernel's 16-step chunks and long prefills, state
+#: sizes of each template (and one that is no power of two), one batch row
+#: and eight.  I leaves a ragged block on both paths: 99 with one row (u
+#: and dt rows not 16-byte multiples, so copied 4 bytes at a time), 100
+#: with eight (16 bytes at a time)
+GRID_S = [1, 15, 16, 17, 96, 2047, 2048, 2049, 4100]
+GRID_STATE = [4, 8, 13, 16, 32]
+SCAN_PATHS = ["pair", "quad"]
+
+
+@pytest.mark.parametrize("path", SCAN_PATHS)
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("N", GRID_STATE)
+@pytest.mark.parametrize("S", GRID_S)
+def test_scan_kernel_grid_matches_plain_on_each_path(cuda, monkeypatch, S, N,
+                                                     B, path):
+    monkeypatch.setattr(ms, "kernel_path", lambda b, i: path)
+    arrs = _ms_inputs(B, S, 99 if B == 1 else 100, N, cuda, seed=S + N + B)
+    before = ms.path_launches[path].value
+    got = ms.mamba_scan_fwd(**arrs)
+    torch.cuda.synchronize()
+    assert ms.path_launches[path].value == before + 1
+    _ms_close(got, mamba_scan_ref(**arrs))
+
+
+@pytest.mark.parametrize("path", SCAN_PATHS)
+def test_scan_kernel_without_h0_is_a_zero_state_on_each_path(
+        cuda, monkeypatch, path):
+    monkeypatch.setattr(ms, "kernel_path", lambda b, i: path)
+    arrs = _ms_inputs(8, 77, 200, 13, cuda, seed=8, h0=False)
+    got = ms.mamba_scan_fwd(**arrs)
+    zero = ms.mamba_scan_fwd(**arrs, h0=torch.zeros(8, 200, 13, device=cuda))
+    torch.cuda.synchronize()
+    for g, z in zip(got, zero):
+        assert torch.equal(g, z)
+
+
+@pytest.mark.parametrize("first,second", [("pair", "quad"),
+                                          ("quad", "pair")])
+def test_scan_kernel_state_chains_across_paths(cuda, monkeypatch, first,
+                                               second):
+    """A first part on one path, h_last carried over as h0 into the rest
+    on the other, gives the whole."""
+    arrs = _ms_inputs(2, 200, 300, 16, cuda, seed=9, h0=False)
+    parts = [{k: (v[:, sl] if v.dim() == 3 else v) for k, v in arrs.items()}
+             for sl in (slice(0, 77), slice(77, 200))]
+    monkeypatch.setattr(ms, "kernel_path", lambda b, i: first)
+    y1, h1 = ms.mamba_scan_fwd(**parts[0])
+    monkeypatch.setattr(ms, "kernel_path", lambda b, i: second)
+    y2, h2 = ms.mamba_scan_fwd(**parts[1], h0=h1)
+    torch.cuda.synchronize()
+    _ms_close((torch.cat([y1, y2], 1), h2), mamba_scan_ref(**arrs))
+
+
+@pytest.mark.parametrize("B,S,path", [(8, 96, "pair"), (1, 300, "quad")])
+def test_scan_kernel_path_counters_move(cuda, B, S, path):
+    """falcon-mamba-7b's widths (I=8192, N=16): the serving waves take the
+    two-lane layout, a one-row prefill the four-lane one; each launch
+    counts once in ``launches`` and once under its path."""
+    arrs = _ms_inputs(B, S, 8192, 16, cuda, seed=10, h0=False)
+    assert ms.kernel_path(B, 8192) == path
+    before = {p: c.value for p, c in ms.path_launches.items()}
+    total = ms.launches.value
+    got = ms_ops.mamba_scan(**arrs)
+    torch.cuda.synchronize()
+    assert ms.launches.value == total + 1
+    assert {p: c.value - before[p] for p, c in ms.path_launches.items()} \
+        == {p: int(p == path) for p in SCAN_PATHS}
+    _ms_close(got, mamba_scan_ref(**arrs))
 
 
 def test_scan_kernel_refuses_what_it_does_not_take(cuda):

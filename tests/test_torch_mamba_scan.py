@@ -132,3 +132,16 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ms.mamba_scan_fwd(**arrs)
     assert ms.launches.value == before
+
+
+def test_kernel_path_takes_four_lanes_only_where_channels_are_few():
+    """The lane layout is a pure function of B and I: falcon-mamba-7b's
+    serving waves (B=8, I=8192) take two lanes per channel, a one-row
+    prefill four; the threshold is the constant."""
+    assert ms.kernel_path(8, 8192) == "pair"
+    assert ms.kernel_path(1, 8192) == "quad"
+    edge = ms.QUAD_BELOW_CHANNELS
+    assert ms.kernel_path(1, edge) == ms.kernel_path(2, edge // 2) == "pair"
+    assert ms.kernel_path(1, edge - 1) == "quad"
+    assert set(ms.path_launches) == set(ms.LANES) == {"pair", "quad"}
+    assert ms.LANES == {"pair": 2, "quad": 4}
