@@ -42,7 +42,20 @@ Phases, each reported on its own lines:
      forward under each scan, are reported: in bf16 the 64 random layers
      amplify one-ulp differences until the logits part.  The last wave
      again with the weights in fp32 holds both comparisons within 2e-2 of
-     max|logit|.
+     max|logit|;
+  7. training h2o-danube-3-4b at its published widths (3.84 B parameters
+     in bf16, AdamW moments in fp32, remat full) through the launcher's code
+     path (``repro_torch.launch.train``): 6 steps of 4 x 2048 tokens, the
+     batches read through the diffusion pipeline whose executor caches hold
+     the shards on the card.  The flash-attention kernel must launch
+     2 x 24 x 6 times (each layer's forward and its remat recompute), each
+     time the tensor-core kernel; the window mean of the last 3 losses must
+     be below that of the first 3; the gradient of every attention weight
+     of every layer must be finite and non-zero; then 2 layers at full
+     width in fp32 take one step with flash and with the plain ``ref``
+     attention (loss within 1e-4 relative, each gradient leaf within 2e-2
+     of its max|g|), and that state's checkpoint must restore bit for bit.
+     Two more steps run under torch.profiler for the card's busy share.
 
 Phase 2 runs the stacking kernel at the reference's test shapes and the
 main path's (N=8 and N=32 at 100x100), each beside the launch floor (the
@@ -52,7 +65,8 @@ reference's eight test cases, bf16 cases of the tensor-core kernel
 (gemma2-27b's widths at S=512 and S=4096, ragged tiles, a binding window,
 MQA, bidirectional), bf16 cases of the SIMT kernel (head dims 20 and 136,
 storage off 16 bytes), the
-serving forward's shape and a long prefill, each with the kernel it took
+serving forward's shape, a long prefill and the training forward's shape
+(4 x 2048), each with the kernel it took
 (each case must take the kernel ``kernel_path``'s rule gives it, the main
 shapes the tensor-core one), its TFLOP/s and share of the bound, the host
 cost of each layer of an eager call at the serving shape, and
@@ -110,6 +124,15 @@ MAMBA_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
 SERVE_ARCH, SERVE_REQUESTS, SERVE_REPLICAS = "h2o-danube-3-4b", 16, 2
 SSM_ARCH = "falcon-mamba-7b"
 SERVE_POLICY, SERVE_MAX_NEW, SERVE_SEED = "max-compute-util", 8, 0
+#: phase 7: h2o-danube-3-4b trained at full width, 4 x 2048 tokens a step
+#: (the pipeline's rows are seq_len + 1 tokens) from 16 shards over 4
+#: executors; the loss's window mean over the first and last 3 steps.  A
+#: 2-step warmup to a peak of 1e-3: from these random weights 3e-4 moves
+#: the loss by about its batch-to-batch spread in 6 steps, and 2e-3 is
+#: already unsteady
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "h2o-danube-3-4b", 4, 2047, 6
+TRAIN_SHARDS, TRAIN_HOSTS, TRAIN_SEED, TRAIN_WINDOW = 16, 4, 0, 3
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 1e-3, 2, 20
 #: flash cases: (label, B, S, H, KV, D, causal, window, softcap, dtype[,
 #: offset]): the reference's eight (tests/test_kernels.py), cases beyond
 #: them, then the shapes the serving path gives the kernel at
@@ -148,6 +171,7 @@ FLASH_CASES = [
      1),
     ("main/serve", 8, 96, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
     ("main/prefill", 1, 8192, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
+    ("main/train", 4, 2048, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
 ]
 #: query rows per chunk of the plain version at long lengths (bounds its
 #: (Sq, Sk) score tensor)
@@ -618,7 +642,7 @@ def phase_flash_kernel() -> list[dict]:
             log("[kernel] flash_attention main/serve host us per call: "
                 + ", ".join(f"{n} {t:.2f}"
                             for n, t in row["host_costs_us"].items()))
-    for label in ("main/serve", "main/prefill"):
+    for label in ("main/serve", "main/prefill", "main/train"):
         row = next(r for r in rows if r["case"] == label)
         if row["path"] != "wgmma":
             raise AssertionError(f"flash {label} took the {row['path']} "
@@ -1380,6 +1404,294 @@ def _ssm_fp32_check(cfg, params, wave) -> dict:
             "argmax_equal_share": same}
 
 
+# --------------------------------------------------------------------------
+# phase 7: training h2o-danube-3-4b through the launcher's code path
+# --------------------------------------------------------------------------
+
+def train_model_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step (forward and backward, 3x the
+    forward; the remat recompute is not counted): 2 per weight of every
+    product per token (the attention projections, the MLP, the unembed)
+    and 4·Dh per valid (q, k) pair and head for the attention itself."""
+    d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim_, cfg.d_ff)
+    per_layer = d * (h + 2 * kv) * dh + h * dh * d + (3 if cfg.gated_mlp
+                                                      else 2) * d * f
+    weights = cfg.n_layers * per_layer + cfg.vocab_size * d
+    pairs = flash_pairs(seq, seq, True, cfg.window)
+    fwd = 2 * weights * batch * seq + cfg.n_layers * 4 * dh * h * batch * pairs
+    return 3.0 * fwd
+
+
+#: the card's kernels in a training step, by kind of work, read from
+#: their names (first match): the flash kernel; fp32 products (the plain
+#: attention's backward and its recomputed forward: cuBLAS/CUTLASS fp32
+#: GEMMs); the other products (the model's bf16 GEMMs); all the rest
+#: (elementwise, softmax, reductions, copies, the optimizer)
+TRAIN_KERNEL_KINDS = {
+    "flash kernel": lambda k: "flash_attention" in k,
+    "fp32 products": lambda k: "f32f32" in k or "sgemm" in k,
+    "other products": lambda k: any(w in k for w in ("gemm", "nvjet",
+                                                      "xmma", "cutlass")),
+    "the rest": lambda k: True,
+}
+
+
+def _profile_train(step_fn, state, pipeline, start: int, steps: int = 2):
+    """``steps`` more train steps under torch.profiler (batches fetched
+    before it starts): host wall per step, card busy time per step (the
+    sum of its kernels' times), the flash kernel's share, and the kernels
+    that take the most card time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [pipeline.fetch_step(start + i) for i in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for tokens in batches:
+            state, metrics = step_fn(state, {"tokens": tokens})
+            float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events) / steps
+    by_kind = dict.fromkeys(TRAIN_KERNEL_KINDS, 0.0)
+    for e in events:
+        kind = next(k for k, test in TRAIN_KERNEL_KINDS.items()
+                    if test(e.key.lower()))
+        by_kind[kind] += e.self_device_time_total / steps / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return state, {
+        "wall_ms_per_step": wall * 1e3,
+        "busy_ms_per_step": busy_us / 1e3,
+        "busy_share": busy_us / 1e3 / (wall * 1e3),
+        "flash_ms_per_step": by_kind["flash kernel"],
+        "ms_per_step_by_kind": by_kind,
+        "kernels_per_step": sum(e.count for e in events) / steps,
+        "top": [(e.key[:70], e.self_device_time_total / steps / 1e3)
+                for e in top]}
+
+
+def _attention_grads(cfg, params, tokens) -> list[dict]:
+    """The loss's gradient with respect to every attention weight at the
+    state's parameters: for each of wq, wk, wv, wo and each layer, whether
+    it is finite and its largest magnitude."""
+    from repro_torch.models.model import make_loss_fn
+
+    names = ("wq", "wk", "wv", "wo")
+    block = params["blocks"]["sub0"]
+    leaves = [block[n].requires_grad_() for n in names]
+    loss = make_loss_fn(cfg)(params, {"tokens": tokens})
+    grads = torch.autograd.grad(loss, leaves)
+    rows = []
+    for name, g in zip(names, grads):
+        for i in range(g.shape[0]):
+            rows.append({"leaf": name, "layer": i,
+                         "finite": bool(torch.isfinite(g[i]).all()),
+                         "max_abs": float(g[i].abs().max())})
+    return rows
+
+
+def _two_layer_fp32(tokens) -> dict:
+    """One step of a 2-layer h2o-danube-3-4b at full width in fp32: the
+    loss and every gradient leaf with the flash kernel against the plain
+    ``ref`` attention, then one AdamW step and a checkpoint save ->
+    restore round trip of the state, compared bit for bit on the card."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import make_loss_fn
+    from repro_torch.models.transformer import flatten, unflatten
+    from repro_torch.train import CheckpointManager, adamw
+    from repro_torch.train.checkpoint import _named_leaves
+
+    dev = tokens.device
+    cfg = get_config(TRAIN_ARCH).with_(n_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED),
+                         dev)
+    pairs = flatten(params)
+    leaves = [p.requires_grad_() for _, p in pairs]
+    out = {}
+    for impl in ("flash", "ref"):
+        loss = make_loss_fn(cfg.with_(attn_impl=impl))(params,
+                                                       {"tokens": tokens})
+        grads = torch.autograd.grad(loss, leaves)
+        out[impl] = (float(loss.detach()), grads)
+    loss_f, grads_f = out["flash"]
+    loss_r, grads_r = out.pop("ref")
+    rel = {}
+    for (path, _), gf, gr in zip(pairs, grads_f, grads_r):
+        rel[path] = float((gf - gr).abs().max() / gr.abs().max())
+    del grads_r, out
+    opt = adamw(TRAIN_LR, warmup=TRAIN_WARMUP, total=TRAIN_TOTAL)
+    state = opt.init(params)
+    state = opt.apply(state, unflatten(
+        (path, g) for (path, _), g in zip(pairs, grads_f)))
+    del grads_f
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.monotonic()
+    mgr = CheckpointManager(ckpt)
+    mgr.save(1, state)
+    save_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    _, back = mgr.restore_latest(state)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    mine = dict(_named_leaves(state))
+    unequal = [name for name, t in _named_leaves(back)
+               if not (t.dtype == mine[name].dtype
+                       and t.device == mine[name].device
+                       and torch.equal(t, mine[name]))]
+    n_leaves = len(mine)
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"loss_flash": loss_f, "loss_ref": loss_r,
+            "loss_rel": abs(loss_f - loss_r) / abs(loss_r),
+            "grad_rel": rel, "ckpt_leaves": n_leaves,
+            "ckpt_unequal": unequal, "ckpt_bytes": ckpt_bytes,
+            "ckpt_save_s": save_s, "ckpt_restore_s": restore_s}
+
+
+def phase_train() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.device import describe
+    from repro_torch.launch import train as launch
+    from repro_torch.models.model import make_train_step
+    from repro_torch.train import adamw, train
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(TRAIN_ARCH).with_(attn_impl="flash")
+    # phases 5 and 6 hold their weights in reference cycles: free them
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    n_params = cfg.param_count()
+    tokens_per_step = TRAIN_BATCH * (TRAIN_SEQ + 1)
+    log(f"[train] {cfg.name} at its published widths: {cfg.n_layers} layers,"
+        f" d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} "
+        f"kv heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, window {cfg.window}; {n_params:,} parameters in "
+        f"{cfg.dtype} (random, from seed {TRAIN_SEED}), AdamW moments in "
+        f"fp32, remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ + 1} "
+        f"tokens from {TRAIN_SHARDS} shards over {TRAIN_HOSTS} executors on "
+        f"the card; no cut of width ({held / 2**30:.3f} GiB still held from "
+        f"earlier phases)")
+    opt = adamw(TRAIN_LR, warmup=TRAIN_WARMUP, total=TRAIN_TOTAL)
+    log(f"[train] optimizer: adamw(peak_lr={TRAIN_LR}, warmup="
+        f"{TRAIN_WARMUP}, total={TRAIN_TOTAL}), b1 {opt.b1}, b2 {opt.b2}, "
+        f"eps {opt.eps}, weight decay {opt.weight_decay}, clip "
+        f"{opt.grad_clip}")
+    pipeline = launch.make_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_HOSTS,
+                                    SERVE_POLICY, 64, TRAIN_SHARDS,
+                                    TRAIN_SEED, dev)
+    failures = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.monotonic()
+        result = train(cfg, pipeline, TRAIN_STEPS, optimizer=opt,
+                       seed=TRAIN_SEED, log_every=1, log=log, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        counts = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        for line in launch.report(result, TRAIN_BATCH, TRAIN_SEQ, dev, peak):
+            log(line)
+        card = describe(dev)
+        expected = dict.fromkeys(counts, 0)
+        n_flash = 2 * cfg.n_layers * TRAIN_STEPS
+        expected.update({"flash_attention": n_flash,
+                         "flash_attention/wgmma": n_flash})
+        log(f"[train] launches {counts} (flash_attention: 2 x layers x steps "
+            f"= 2 x {cfg.n_layers} x {TRAIN_STEPS} = {n_flash}, the forward "
+            f"and the remat recompute, all on tensor cores)")
+        if counts != expected:
+            failures.append(f"launches {counts}, expected {expected}")
+        losses = result.losses
+        w = TRAIN_WINDOW
+        first, last = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+        log(f"[train] losses {', '.join(f'{x:.4f}' for x in losses)}: mean "
+            f"of the first {w} {first:.4f}, of the last {w} {last:.4f}")
+        if not (all(np.isfinite(losses)) and last < first):
+            failures.append(f"the loss did not fall ({first} -> {last})")
+        step_seconds = result.step_seconds
+        step_ms = statistics.median(step_seconds[1:]) * 1e3
+        flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ + 1)
+        mfu = flops / (step_ms * 1e-3) / BF16_OPS_PER_S
+        step_fn = make_train_step(cfg, opt)
+        state, prof = _profile_train(step_fn, result.state, pipeline,
+                                     TRAIN_STEPS)
+        del result
+        log(f"[train] 2 train steps profiled ({card}): wall "
+            f"{prof['wall_ms_per_step']:.1f} ms, card busy "
+            f"{prof['busy_ms_per_step']:.1f} ms ({prof['busy_share']:.3f} of "
+            f"the wall), {prof['kernels_per_step']:.0f} kernels per step; "
+            f"by kind: " + ", ".join(f"{k} {ms:.2f} ms" for k, ms in
+                                    prof["ms_per_step_by_kind"].items())
+            + "; top: "
+            + "; ".join(f"{k} {ms:.2f} ms" for k, ms in prof["top"]))
+        tokens = pipeline.fetch_step(0)
+        grads = _attention_grads(cfg, state.params, tokens)
+        del state
+        bad = [f"{r['leaf']}[{r['layer']}]" for r in grads
+               if not r["finite"] or not r["max_abs"] > 0]
+        log(f"[train] full-width gradient of every attention weight at the "
+            f"trained state: {len(grads)} (leaf, layer) slices, "
+            f"{len(grads) - len(bad)} finite and non-zero; smallest max|g| "
+            f"{min(r['max_abs'] for r in grads):.3g}")
+        if bad:
+            failures.append(f"attention gradients zero or non-finite: {bad}")
+    finally:
+        pipeline.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = _two_layer_fp32(tokens)
+    worst = max(small["grad_rel"].values())
+    log(f"[train] 2 layers at full width in fp32, one step: loss flash "
+        f"{small['loss_flash']:.6f} vs ref {small['loss_ref']:.6f} (relative "
+        f"{small['loss_rel']:.3g}, tolerance 1e-4); gradients, max abs diff "
+        f"/ max|g| over {len(small['grad_rel'])} leaves {worst:.3g} "
+        f"(tolerance 2e-2)")
+    if not small["loss_rel"] <= 1e-4:
+        failures.append(f"2-layer fp32 loss: flash vs ref {small['loss_rel']}")
+    if not worst <= 2e-2:
+        failures.append(f"2-layer fp32 gradients: flash vs ref {worst}")
+    log(f"[train] checkpoint of that state ({small['ckpt_leaves']} leaves, "
+        f"{small['ckpt_bytes'] / 1e9:.3f} GB): save {small['ckpt_save_s']:.2f}"
+        f"s, restore {small['ckpt_restore_s']:.2f}s, "
+        f"{small['ckpt_leaves'] - len(small['ckpt_unequal'])} leaves "
+        f"bitwise equal after the round trip")
+    if small["ckpt_unequal"]:
+        failures.append(f"checkpoint round trip changed "
+                        f"{small['ckpt_unequal']}")
+    log(f"[train] on {card}: {step_ms:.1f} ms per step (median of steps 2-"
+        f"{TRAIN_STEPS}), {tokens_per_step / (step_ms * 1e-3):.0f} tokens/s; "
+        f"model FLOPs {flops:.4g} per step, {mfu:.3f} of the card's "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 peak; peak device memory "
+        f"{peak / 2**30:.3f} GiB; train wall {wall_s:.1f}s for "
+        f"{TRAIN_STEPS} steps")
+    if failures:
+        raise AssertionError("train: " + "; ".join(failures))
+    return {"arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ + 1, "steps": TRAIN_STEPS,
+            "optimizer": {"peak_lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+                          "total": TRAIN_TOTAL},
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_all": [t * 1e3 for t in step_seconds],
+            "tokens_per_s": tokens_per_step / (step_ms * 1e-3),
+            "model_flops_per_step": flops, "mfu_bf16": mfu,
+            "peak_memory_bytes": peak, "held_before_bytes": held,
+            "wall_s": wall_s, "launches": counts["flash_attention"],
+            "launches_wgmma": counts["flash_attention/wgmma"],
+            "launches_all": counts, "profile": prof,
+            "attention_grads": grads, "two_layer_fp32": small, "card": card}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--json", type=Path, default=None,
@@ -1402,6 +1714,7 @@ def main(argv=None) -> int:
     pipe = phase_pipeline()
     serve = phase_serve()
     ssm = phase_ssm_serve()
+    trained = phase_train()
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
@@ -1432,13 +1745,16 @@ def main(argv=None) -> int:
     }]}
     fa_rows = {r["case"]: r for r in kernels["flash_attention"]}
     fa_main, fa_prefill = fa_rows["main/serve"], fa_rows["main/prefill"]
+    fa_train = fa_rows["main/train"]
     line["kernels"].append({
         "name": "flash_attention",
         "route": "cuda",
         "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
-        "launches": serve["launches"],
-        "launches_wgmma": serve["launches_wgmma"],
+        "launches": serve["launches"] + trained["launches"],
+        "launches_serve": serve["launches"],
+        "launches_train": trained["launches"],
+        "launches_wgmma": serve["launches_wgmma"] + trained["launches_wgmma"],
         "path": fa_main["path"],
         "shape": fa_main["shape"],
         "max_abs_err": max(fa_main["max_abs_err"], fa_prefill["max_abs_err"]),
@@ -1452,6 +1768,10 @@ def main(argv=None) -> int:
         "sdpa_flag_ms": fa_main["sdpa_flag_ms"],
         "tflops": fa_main["tflops"],
         "prefill": {k: fa_prefill[k] for k in (
+            "path", "shape", "max_abs_err", "ms", "plain_ms", "host_ms",
+            "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
+            "sdpa_flag_ms", "tflops")},
+        "train": {k: fa_train[k] for k in (
             "path", "shape", "max_abs_err", "ms", "plain_ms", "host_ms",
             "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
             "sdpa_flag_ms", "tflops")},
@@ -1483,7 +1803,8 @@ def main(argv=None) -> int:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(
             {"env": env, "kernels": kernels, "flat": flat, "pipeline": pipe,
-             "serve": serve, "ssm_serve": ssm, "kernels_line": line,
+             "serve": serve, "ssm_serve": ssm, "train": trained,
+             "kernels_line": line,
              "seconds": time.monotonic() - t_start},
             indent=2, default=str) + "\n")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")

@@ -22,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 
@@ -59,6 +61,21 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+
+
+def refuse_grad(kernel: str, **tensors) -> None:
+    """Raise where a forward-only kernel is handed a tensor that requires
+    grad while grad mode is on: its output would carry no gradient, and
+    training would go on with that gradient silently cut."""
+    if not torch.is_grad_enabled():
+        return
+    wants = [name for name, t in tensors.items()
+             if t is not None and t.requires_grad]
+    if wants:
+        raise RuntimeError(
+            f"{kernel}: {', '.join(wants)} require grad, but the kernel has "
+            f"no backward; run it under torch.no_grad() or call the op with "
+            f"gradients")
 
 
 def nvcc() -> str:

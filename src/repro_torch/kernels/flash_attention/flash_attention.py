@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from ..build import LaunchCounter, load
+from ..build import LaunchCounter, load, refuse_grad
 
 #: launches of either flash-attention kernel (``launches.value``;
 #: ``reset()``)
@@ -101,7 +101,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,H,Sq,D), k/v (B,KV,Sk,D): fp32 or bf16 on one CUDA device, any
     strides with a contiguous last dim (so the model's (B,S,H,D) tensors go
     in as transposed views, uncopied).  Returns (B,H,Sq,D) in q's dtype,
-    laid out in memory as q is."""
+    laid out in memory as q is.  The kernel has no backward: inputs that
+    require grad while grad mode is on are refused (``ops.
+    flash_attention_with_ref_vjp`` is the op with gradients)."""
+    refuse_grad("flash_attention", q=q, k=k, v=v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-d, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from ..build import LaunchCounter, load
+from ..build import LaunchCounter, load, refuse_grad
 
 #: launches of the selective-scan kernel (``launches.value``; ``reset()``)
 launches = LaunchCounter()
@@ -63,7 +63,10 @@ def mamba_scan_fwd(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """u, dt (B,S,I); A (I,N); Bm, Cm (B,S,N); D (I,); h0 (B,I,N) or None
     (a zero state): fp32 on one CUDA device, any strides with a contiguous
     last dim (so column slices of the model's projection go in uncopied).
-    Returns (y (B,S,I), h_last (B,I,N)), both fp32 and contiguous."""
+    Returns (y (B,S,I), h_last (B,I,N)), both fp32 and contiguous.  The
+    kernel has no backward: inputs that require grad while grad mode is on
+    are refused."""
+    refuse_grad("mamba_scan", u=u, dt=dt, A=A, Bm=Bm, Cm=Cm, D=D, h0=h0)
     if u.dim() != 3:
         raise ValueError(f"u must be (B, S, I), got {tuple(u.shape)}")
     b, s, i = u.shape

@@ -74,10 +74,8 @@ def serve(cfg: ModelConfig, n_requests: int = 16, replicas: int = 2,
 
 def report(eng: ServeEngine, done: list[Request], replicas: int,
            policy: str) -> list[str]:
-    """The reference's three ``[serve]`` lines, then the times."""
-    fwd_ms = [w.forward_s * 1e3 for w in eng.waves]
-    steps = sum(w.replay_steps + w.decode_steps for w in eng.waves)
-    step_ms = sum(w.replay_s + w.decode_s for w in eng.waves) * 1e3 / steps
+    """The reference's three ``[serve]`` lines, then the times (with no
+    wave served there are none to report, and the line says so)."""
     cfg = eng.cfg
     mixers = []
     if any(s.kind == "attn" for s in cfg.pattern):
@@ -86,18 +84,28 @@ def report(eng: ServeEngine, done: list[Request], replicas: int,
         ran_kernel = cfg.use_mamba_kernel and eng.device.type == "cuda"
         mixers.append("selective scan "
                       + ("mamba_scan kernel" if ran_kernel else "plain"))
-    return [
+    lines = [
         f"[serve] served {len(done)} requests on {replicas} replicas "
         f"({policy})",
         f"[serve] prefill tokens computed: {eng.prefill_tokens}, "
         f"reused from prefix caches: {eng.reused_tokens}",
         f"[serve] router: {eng.router.stats()}",
+    ]
+    steps = sum(w.replay_steps + w.decode_steps for w in eng.waves)
+    if not steps:
+        lines.append(f"[serve] on {describe(eng.device)}: no wave served, "
+                     f"so no forward or decode time ({', '.join(mixers)} "
+                     f"in the forward)")
+        return lines
+    fwd_ms = [w.forward_s * 1e3 for w in eng.waves]
+    step_ms = sum(w.replay_s + w.decode_s for w in eng.waves) * 1e3 / steps
+    lines.append(
         f"[serve] on {describe(eng.device)}: prefill forward "
         + ", ".join(f"{t:.2f}" for t in fwd_ms)
         + f" ms per wave of {WAVE} x {eng.max_seq} tokens; decode "
         f"{step_ms:.2f} ms per step ({steps} steps, {', '.join(mixers)} "
-        f"in the forward)",
-    ]
+        f"in the forward)")
+    return lines
 
 
 def main(argv=None) -> int:

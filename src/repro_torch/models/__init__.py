@@ -1,7 +1,8 @@
 """The LM substrate of the port: configuration schema, the decoder
 and its step builders (counterpart of ``repro.models``)."""
 from .config import LayerSpec, ModelConfig
-from .model import make_forward, make_prefill, make_serve_step
+from .model import (lm_loss, make_forward, make_loss_fn, make_prefill,
+                    make_serve_step, make_train_step)
 from .transformer import init_cache, init_params, param_defs
 
 __all__ = [
@@ -9,8 +10,11 @@ __all__ = [
     "ModelConfig",
     "init_cache",
     "init_params",
+    "lm_loss",
     "make_forward",
+    "make_loss_fn",
     "make_prefill",
     "make_serve_step",
+    "make_train_step",
     "param_defs",
 ]

@@ -187,7 +187,8 @@ def attention_block(x: torch.Tensor, p: dict, positions: torch.Tensor,
                     use_rope: bool = True,
                     impl: str = "blocked") -> torch.Tensor:
     """x (B,S,D); p holds wq, wk, wv, wo.  ``impl`` is ref, blocked or
-    flash (the hand-written kernel on the card)."""
+    flash (the hand-written kernel on the card; with gradients, its
+    backward is the plain version's)."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
@@ -195,10 +196,16 @@ def attention_block(x: torch.Tensor, p: dict, positions: torch.Tensor,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     if impl == "flash":
-        out = fa_ops.flash_attention(
-            q, k, v, causal=variant.causal,
-            window=variant.window if variant.kind == "swa" else 0,
-            softcap=variant.softcap)
+        # the kernel is forward only: where a gradient is wanted, take the
+        # op whose backward is the plain version's (the one place where
+        # the port's routing departs from the reference's model)
+        wants_grad = torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)
+        op = (fa_ops.flash_attention_with_ref_vjp if wants_grad
+              else fa_ops.flash_attention)
+        out = op(q, k, v, causal=variant.causal,
+                 window=variant.window if variant.kind == "swa" else 0,
+                 softcap=variant.softcap)
     elif impl == "blocked":
         out = blocked_attention(q, k, v, positions, positions, variant)
     elif impl == "ref":

@@ -1,14 +1,16 @@
-"""Model API: the step builders the serving engine and launchers call.
+"""Model API: the loss, and the step functions that the trainer, the
+serving engine and the launchers call.
 
 The port of the reference's ``repro.models.model``, decoder branch:
 ``make_forward``, ``make_prefill`` and ``make_serve_step`` return plain
-functions over (params, batch).  PyTorch runs eagerly, so there is nothing
-to jit; callers run them under ``torch.inference_mode()``.
+functions over (params, batch), which callers run under
+``torch.inference_mode()``; ``make_loss_fn`` and ``make_train_step`` are
+the training side.  PyTorch runs eagerly, so there is nothing to jit.
 
-Left out, each for its slice (``ROADMAP.md``): ``lm_loss``,
-``make_loss_fn``, ``make_train_step`` and ``make_hidden_forward``
-(training); the encoder-decoder and vision branches; ``input_specs``,
-``abstract_cache`` and ``batch_logical`` (the dry-run and the mesh).
+Left out, each for its slice (``ROADMAP.md``): the encoder-decoder and
+vision branches; training Mamba sub-layers (the scan has no backward);
+``input_specs``, ``abstract_cache`` and ``batch_logical`` (the dry-run
+and the mesh).
 """
 from __future__ import annotations
 
@@ -19,6 +21,33 @@ import torch
 from . import transformer as T
 from .config import ModelConfig
 
+#: the adaptive chunk rule bounds each chunk's fp32 logits to this many
+#: bytes (the reference's figure)
+LOGITS_CHUNK_BYTES = 96 * 10**9
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor, tokens: torch.Tensor,
+            aux: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy (fp32) + MoE aux.  logits (B,S,V); the last
+    position has no target and is masked."""
+    B, S, V = logits.shape
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1).long()
+    mask = torch.cat([torch.ones((B, S - 1), device=logits.device),
+                      torch.zeros((B, 1), device=logits.device)], dim=1)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = ((logz - gold) * mask).sum() / mask.sum()
+    return nll + cfg.router_aux_coef * aux
+
+
+# ---------------------------------------------------------------------------
+# Step functions
+# ---------------------------------------------------------------------------
 
 def make_forward(cfg: ModelConfig) -> Callable[..., tuple[torch.Tensor,
                                                           torch.Tensor]]:
@@ -53,3 +82,92 @@ def make_serve_step(cfg: ModelConfig):
         return T.decode_step_lm(cfg, params, cache, batch["token"],
                                 batch["pos"])
     return serve_step
+
+
+def make_hidden_forward(cfg: ModelConfig):
+    """fwd(params, batch) -> (hidden (B,S,D) after the final norm, aux)."""
+    T._check_supported(cfg)
+
+    def fwd(params, batch):
+        return T.forward_lm_hidden(cfg, params, batch)
+    return fwd
+
+
+def make_loss_fn(cfg: ModelConfig, seq_chunk: int = 0):
+    """Chunked-vocab cross-entropy over the hidden states, the reference's:
+    the unembed runs one sequence chunk at a time, so fp32 logits live for
+    one chunk; ``seq_chunk`` 0 picks the chunk by the adaptive rule (the
+    fewest chunks that keep each chunk's global fp32 logits under
+    ``LOGITS_CHUNK_BYTES``).  The loss sums the masked nll of every chunk
+    and divides by B·(S−1)."""
+    _check_trainable(cfg)
+    hfwd = make_hidden_forward(cfg)
+
+    def loss_fn(params, batch):
+        x, aux = hfwd(params, batch)
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        V = cfg.vocab_size
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                            dim=1).long()
+        nll_sum = torch.zeros((), device=x.device)
+        if seq_chunk > 0:
+            step = min(seq_chunk, S)
+        else:
+            n_chunks = max(1, -(-B * S * V * 4 // LOGITS_CHUNK_BYTES))
+            step = max(-(-S // n_chunks), 1)
+        for s0 in range(0, S, step):
+            xe = x[:, s0: s0 + step]
+            lg = torch.einsum("bsd,vd->bsv", xe, table.to(xe.dtype)).float()
+            if cfg.final_softcap:
+                lg = cfg.final_softcap * torch.tanh(lg / cfg.final_softcap)
+            tg = targets[:, s0: s0 + step]
+            logz = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, tg[..., None])[..., 0]
+            nll = logz - gold
+            if s0 + step >= S:   # mask the final position (no next token)
+                c = tg.shape[1]  # the last chunk may be shorter than step
+                nll = nll * torch.cat(
+                    [torch.ones((B, c - 1), device=x.device),
+                     torch.zeros((B, 1), device=x.device)], dim=1)
+            nll_sum = nll_sum + nll.sum()
+        loss = nll_sum / (B * (S - 1))
+        return loss + cfg.router_aux_coef * aux
+
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, optimizer):
+    """Returns train_step(state, batch) -> (state, metrics): the loss and
+    its gradients (autograd), then ``optimizer.apply``, which updates the
+    state's tensors in place.  ``optimizer`` is a
+    ``repro_torch.train.optimizer.Optimizer``; metrics are
+    ``{"loss", "grad_norm", "step"}`` as 0-dim tensors."""
+    # imported here: repro_torch.train imports this package
+    from repro_torch.train.optimizer import global_norm
+
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(state, batch):
+        pairs = T.flatten(state.params)
+        leaves = [p.requires_grad_() for _, p in pairs]
+        loss = loss_fn(state.params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        grads = T.unflatten((path, g) for (path, _), g in zip(pairs, grads))
+        with torch.no_grad():
+            gnorm = global_norm(grads)
+            new_state = optimizer.apply(state, grads, gnorm=gnorm)
+        return new_state, {"loss": loss.detach(), "grad_norm": gnorm,
+                           "step": new_state.step}
+
+    return train_step
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a model the port cannot train yet, naming the slice."""
+    T._check_supported(cfg)
+    if any(spec.kind == "mamba" for spec in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: training Mamba sub-layers comes with the Mamba "
+            f"training slice (the selective scan has no backward yet)")

@@ -8,10 +8,15 @@ tree converts leaf for leaf (``repro_torch.convert.params_from_jax``).  The
 reference's ``lax.scan`` over blocks is a Python loop over layers, each
 reading its slice of the stacked leaves (a view, no copy).
 
+Remat: ``cfg.remat == "full"`` runs each block under
+``torch.utils.checkpoint`` (its activations are recomputed in the
+backward, as ``jax.checkpoint`` does); the reference's gradient barrier is
+an XLA artifact and has no counterpart.
+
 Left out, each for its slice (``ROADMAP.md``): MoE MLPs, the
-encoder-decoder and its learned positions, the vision splice, remat and
-the gradient barrier (no backward yet), logical sharding axes,
-``forward_lm_hidden`` and ``abstract_params``.
+encoder-decoder and its learned positions, the vision splice, the
+selective remat policy (``remat="dots"``), logical sharding axes and
+``abstract_params``.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import LayerSpec, ModelConfig
@@ -241,12 +247,55 @@ def _layer(block: dict, i: int) -> dict:
     return {k: v[i] for k, v in block.items()}
 
 
+def _block_fn(cfg: ModelConfig, positions):
+    """Block i: all sub-layers of the pattern, each with its parameters."""
+    def fn(x, *subs):
+        for spec, p in zip(cfg.pattern, subs):
+            x = _apply_sub(cfg, spec, x, p, positions)
+        return x
+    return fn
+
+
 def _blocks(cfg: ModelConfig, x, blocks: dict, positions):
+    """The blocks in order.  Each stacked leaf is unbound into its layers'
+    slices once (views), so a backward gathers each leaf's gradient with
+    one stack, not a zero-filled full-size tensor per layer.  Where a
+    gradient is wanted and ``cfg.remat == "full"``, each block runs under
+    ``torch.utils.checkpoint``."""
+    fn = _block_fn(cfg, positions)
+    layers = [{k: v.unbind(0) for k, v in blocks[f"sub{j}"].items()}
+              for j in range(len(cfg.pattern))]
+    remat = torch.is_grad_enabled() and _remat(cfg)
     for i in range(cfg.n_blocks):
-        for j, spec in enumerate(cfg.pattern):
-            x = _apply_sub(cfg, spec, x, _layer(blocks[f"sub{j}"], i),
-                           positions)
+        subs = [{k: v[i] for k, v in sub.items()} for sub in layers]
+        if remat:
+            x = checkpoint(fn, x, *subs, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = fn(x, *subs)
     return x
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether blocks are recomputed in the backward."""
+    if cfg.remat == "none":
+        return False
+    if cfg.remat == "full":
+        return True
+    raise NotImplementedError(
+        f"{cfg.name}: remat={cfg.remat!r} (save the matmul outputs, "
+        f"recompute the rest) comes with the selective-remat slice")
+
+
+def forward_lm_hidden(cfg: ModelConfig, params, batch: dict
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward up to the final norm (no unembed): the chunked loss's input.
+    Returns (hidden (B,S,D), aux scalar)."""
+    x = embed_inputs(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _blocks(cfg, x, params["blocks"], positions)
+    return (_norm(cfg, x, params, "final"),
+            torch.zeros((), device=x.device))
 
 
 def embed_inputs(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
@@ -263,11 +312,8 @@ def forward_lm(cfg: ModelConfig, params, tokens: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B,S,V) fp32, aux scalar).  The aux loss is
     the MoE router's; a dense model's is 0."""
-    x = embed_inputs(cfg, params, {"tokens": tokens})
-    positions = torch.arange(x.shape[1], device=x.device)
-    x = _blocks(cfg, x, params["blocks"], positions)
-    x = _norm(cfg, x, params, "final")
-    return _unembed(cfg, params, x), torch.zeros((), device=x.device)
+    x, aux = forward_lm_hidden(cfg, params, {"tokens": tokens})
+    return _unembed(cfg, params, x), aux
 
 
 # ---------------------------------------------------------------------------

@@ -172,3 +172,18 @@ def test_kernel_path_takes_strided_views_of_a_fused_projection():
                for a, b_ in ((0, 8), (8, 10), (10, 12)))
     assert not q.is_contiguous()
     assert fa.kernel_path(q, k, v) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "float32"])
+def test_op_returns_the_reference_dtype(dtype):
+    """The reference casts q, k and v to fp32 in its kernel and returns q's
+    dtype; so does the port's op (on the CPU, its plain version)."""
+    arrs = _inputs(1, 32, 4, 2, 16, seed=3)
+    want = jax_ops.flash_attention(*(jnp.asarray(a, dtype) for a in arrs))
+    got = ops.flash_attention(*(_torch(a, dtype) for a in arrs))
+    assert got.dtype == getattr(torch, str(want.dtype)) == getattr(torch,
+                                                                   dtype)
+    tol = {"float16": 2e-3, "bfloat16": 2e-2, "float32": 2e-5}[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)

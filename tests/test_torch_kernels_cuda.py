@@ -340,6 +340,91 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention_fwd(big, big[:, :1], big[:, :1])
 
 
+@pytest.mark.parametrize("causal,window,softcap",
+                         [(True, 0, 0.0), (True, 32, 30.0), (False, 0, 0.0)])
+def test_flash_op_takes_fp16_as_the_reference(cuda, causal, window, softcap):
+    """fp16 q/k/v: the op runs them in fp32 (the SIMT kernel) and returns
+    fp16, as the reference's kernel does.  Held to the plain version on the
+    same inputs at the fp32 tolerance, plus one fp16 rounding of each side
+    (rtol 2e-5 + 2^-10)."""
+    q, k, v = _fa_inputs(2, 96, 8, 2, 64, torch.float16, cuda, seed=4)
+    before = {p: c.value for p, c in fa.path_launches.items()}
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    torch.cuda.synchronize()
+    assert {p: c.value - before[p] for p, c in fa.path_launches.items()} \
+        == {"wgmma": 0, "simt": 1}
+    assert got.dtype == torch.float16 and got.shape == q.shape
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=causal, window=window,
+                         softcap=softcap).transpose(1, 2)
+    assert want.dtype == torch.float16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-5,
+                               rtol=2e-5 + 2.0 ** -10)
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """Both forward-only kernels raise on a tensor that requires grad while
+    grad mode is on, and run under no_grad."""
+    q, k, v = (t.transpose(1, 2) for t in
+               _fa_inputs(1, 8, 2, 1, 16, torch.float32, cuda))
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="q require grad"):
+        fa.flash_attention_fwd(q, k, v)
+    with torch.no_grad():
+        fa.flash_attention_fwd(q, k, v)
+    arrs = _ms_inputs(1, 8, 16, 4, cuda, seed=6)
+    arrs["dt"].requires_grad_()
+    with pytest.raises(RuntimeError, match="dt require grad"):
+        ms.mamba_scan_fwd(**arrs)
+    with torch.no_grad():
+        ms.mamba_scan_fwd(**arrs)
+    torch.cuda.synchronize()
+
+
+def test_train_step_on_the_card_trains_the_attention_weights(cuda):
+    """A one-layer h2o-danube-3-4b (reduced widths, bf16) on the card: the
+    loss's backward launches the flash kernel twice (the forward and the
+    remat recompute, both on tensor cores), every attention weight gets a
+    finite, non-zero gradient that agrees with the plain ``ref``
+    attention's within 2e-2 of its max|g|, and a train step runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import make_loss_fn, make_train_step
+    from repro_torch.train import adamw
+
+    cfg = get_config("h2o-danube-3-4b").reduced().with_(n_layers=1,
+                                                        attn_impl="flash")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda,
+                           dtype=torch.int32)
+    names = ("wq", "wk", "wv", "wo")
+    leaves = [params["blocks"]["sub0"][n].requires_grad_() for n in names]
+    grads = {}
+    for impl in ("flash", "ref"):
+        before = fa.launches.value
+        before_tc = fa.path_launches["wgmma"].value
+        loss = make_loss_fn(cfg.with_(attn_impl=impl))(params,
+                                                       {"tokens": tokens})
+        grads[impl] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        n = 2 if impl == "flash" else 0
+        assert fa.launches.value - before == n
+        assert fa.path_launches["wgmma"].value - before_tc == n
+    for name, g, want in zip(names, grads["flash"], grads["ref"]):
+        assert g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, \
+            name
+        torch.testing.assert_close(g.float(), want.float(), rtol=0,
+                                   atol=2e-2 * float(want.abs().max()))
+    opt = adamw(1e-3, warmup=1, total=10)
+    state, metrics = make_train_step(cfg, opt)(opt.init(params),
+                                               {"tokens": tokens})
+    assert bool(torch.isfinite(metrics["loss"])) and int(metrics["step"]) == 1
+    for n in names:
+        assert float(state.m["blocks"]["sub0"][n].abs().max()) > 0, n
+
+
 def test_serve_forward_launches_flash_once_per_layer(cuda):
     """The bf16 forward of reduced h2o-danube-3-4b launches the flash
     kernel once per layer, each time on the tensor-core path; its logits
@@ -576,6 +661,30 @@ def test_scan_kernel_refuses_what_it_does_not_take(cuda):
     big = _ms_inputs(1, 8, 16, 33, cuda, seed=7)
     with pytest.raises(ValueError, match="state size"):
         ms.mamba_scan_fwd(**big)
+
+
+@pytest.mark.parametrize("low", ["u", "dt"])
+def test_scan_op_takes_bf16_as_the_reference(cuda, low):
+    """A bf16 u or dt: the op casts to fp32 for the kernel and returns y in
+    u's dtype and h_last in fp32, as the reference does.  h_last, and a
+    fp32 y, at the reference's tolerance; a bf16 y at it plus one bf16
+    rounding of each side (rtol 1e-3 + 2^-7)."""
+    arrs = _ms_inputs(2, 96, 48, 8, cuda, seed=21)
+    arrs[low] = arrs[low].bfloat16()
+    before = ms.launches.value
+    y, h = ms_ops.mamba_scan(**arrs)
+    torch.cuda.synchronize()
+    assert ms.launches.value == before + 1
+    want_y, want_h = mamba_scan_ref(**arrs)
+    assert y.dtype == want_y.dtype == arrs["u"].dtype
+    assert h.dtype == want_h.dtype == torch.float32
+    torch.testing.assert_close(h, want_h, **MS_TOL)
+    if low == "u":
+        torch.testing.assert_close(y.float(), want_y.float(),
+                                   atol=MS_TOL["atol"],
+                                   rtol=MS_TOL["rtol"] + 2.0 ** -7)
+    else:
+        torch.testing.assert_close(y, want_y, **MS_TOL)
 
 
 def test_ssm_forward_launches_scan_once_per_layer(cuda):

@@ -145,3 +145,27 @@ def test_kernel_path_takes_four_lanes_only_where_channels_are_few():
     assert ms.kernel_path(1, edge - 1) == "quad"
     assert set(ms.path_launches) == set(ms.LANES) == {"pair", "quad"}
     assert ms.LANES == {"pair": 2, "quad": 4}
+
+
+@pytest.mark.parametrize("u_dtype,dt_dtype", [("bfloat16", "float32"),
+                                              ("float32", "bfloat16"),
+                                              ("bfloat16", "bfloat16")])
+def test_op_returns_the_reference_dtypes(u_dtype, dt_dtype):
+    """bf16 u or dt: the reference computes in fp32 and returns y in u's
+    dtype and h_last in fp32; so does the port's op (on the CPU, its plain
+    version), with the reference's values."""
+    a = _inputs(1, 8, 16, 4, seed=12)
+    dts = {"u": u_dtype, "dt": dt_dtype}
+    jargs = {k: jnp.asarray(v, dts.get(k, "float32")) for k, v in a.items()}
+    jy, jh = jax_ops.mamba_scan(**jargs)
+    y, h = ops.mamba_scan(**{k: torch.from_numpy(np.array(
+        v.astype(jnp.float32))).to(getattr(torch, dts.get(k, "float32")))
+        for k, v in jargs.items()})
+    assert y.dtype == getattr(torch, str(jy.dtype)) == getattr(torch, u_dtype)
+    assert h.dtype == getattr(torch, str(jh.dtype)) == torch.float32
+    tol = 2.0 ** -7 if u_dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(jy.astype(jnp.float32)), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-5,
+                               atol=1e-5)

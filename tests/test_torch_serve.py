@@ -285,6 +285,24 @@ def test_launcher_prints_the_reference_lines_ssm():
     assert "attention" not in lines[3]
 
 
+def test_launcher_with_zero_requests_prints_the_reference_lines():
+    """No request means no wave: the port prints the reference's three
+    [serve] lines and a times line that has no time to report, with no
+    division by the zero step count."""
+    argv = ["--arch", "h2o-danube-3-4b", "--reduced", "--requests", "0"]
+    jout = io.StringIO()
+    with contextlib.redirect_stdout(jout):
+        assert jax_launch.main(argv) == 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert launch.main(argv + ["--device", "cpu"]) == 0
+    lines = out.getvalue().splitlines()
+    assert lines[:3] == jout.getvalue().splitlines()
+    assert lines[0].startswith("[serve] served 0 requests")
+    assert len(lines) == 4 and lines[3].startswith("[serve] on cpu")
+    assert "no wave served" in lines[3]
+
+
 def test_launcher_requests_are_the_reference_prompts():
     cfg = get_config("h2o-danube-3-4b").reduced()
     reqs = launch.make_requests(cfg, 16, 8, seed=0)
