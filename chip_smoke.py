@@ -49,13 +49,42 @@ Phases, each reported on its own lines:
      batches read through the diffusion pipeline whose executor caches hold
      the shards on the card.  The flash-attention kernel must launch
      2 x 24 x 6 times (each layer's forward and its remat recompute), each
-     time the tensor-core kernel; the window mean of the last 3 losses must
-     be below that of the first 3; the gradient of every attention weight
+     time the tensor-core kernel; the mean loss over the run's own 6
+     batches must be lower at the trained weights than at the initial ones
+     (the window means of the per-step losses, each on another batch, are
+     reported); the gradient of every attention weight
      of every layer must be finite and non-zero; then 2 layers at full
      width in fp32 take one step with flash and with the plain ``ref``
      attention (loss within 1e-4 relative, each gradient leaf within 2e-2
      of its max|g|), and that state's checkpoint must restore bit for bit.
-     Two more steps run under torch.profiler for the card's busy share.
+     Two more steps run under torch.profiler for the card's busy share;
+  8. serving qwen3-moe-30b-a3b at its published widths in bf16 (30.5 B
+     parameters, 128 experts top-8, random weights from a seeded
+     torch.Generator) through the same launcher code path and traffic.
+     The flash kernel must launch 2 x 48 times, each on tensor cores; on
+     both waves every layer's attention block is held against the plain
+     ``ref`` attention and its MoE block (sort+gather routing) against
+     ``moe_block_onehot`` (the reference's one-hot formulation) on the
+     forward's own hidden states, within 2e-2 of max|output|, and each
+     layer's dropped (token, choice) pairs are printed (the padded wave
+     overflows some experts' capacity).  Then each wave again with the
+     weights widened to fp32, cut to its first 2, 8 and 48 layers at full
+     width: the MoE block against the one-hot one on layers 0-1 within
+     1e-4, and, on every request that dropped no pair up to its last
+     prompt position (there must be one), the forward logits against the
+     decode replay's, within 2e-2 of max|logit| at 2 layers and reported
+     beyond (and in bf16), beside how far an fp32 forward with flash and
+     one with ``ref`` attention drift apart layer by layer: with these
+     random weights rounding grows to O(1) with depth.  A profiled decode
+     step and the experts' products timed alone give the experts' share
+     of the card time against the bound of reading every expert's
+     weights.  Then one wave of
+     reduced jamba-1.5-large (attention, Mamba, dense and MoE sub-layers)
+     through the flash and scan kernels, whose fp32 logits must be within
+     2e-2 of max|logit| of the plain path's, and the train_lm app's
+     ``moe-30m`` preset trained 6 steps through its pipeline and optimizer:
+     the loss must fall by phase 7's rule, the aux loss be finite and
+     positive and every layer's router gradient finite and non-zero.
 
 Phase 2 runs the stacking kernel at the reference's test shapes and the
 main path's (N=8 and N=32 at 100x100), each beside the launch floor (the
@@ -65,8 +94,9 @@ reference's eight test cases, bf16 cases of the tensor-core kernel
 (gemma2-27b's widths at S=512 and S=4096, ragged tiles, a binding window,
 MQA, bidirectional), bf16 cases of the SIMT kernel (head dims 20 and 136,
 storage off 16 bytes), the
-serving forward's shape, a long prefill and the training forward's shape
-(4 x 2048), each with the kernel it took
+serving forward's shape, a long prefill, the training forward's shape
+(4 x 2048) and qwen3-moe-30b-a3b's serving shape (D 128, a GQA group of
+8), each with the kernel it took
 (each case must take the kernel ``kernel_path``'s rule gives it, the main
 shapes the tensor-core one), its TFLOP/s and share of the bound, the host
 cost of each layer of an eager call at the serving shape, and
@@ -126,18 +156,29 @@ SSM_ARCH = "falcon-mamba-7b"
 SERVE_POLICY, SERVE_MAX_NEW, SERVE_SEED = "max-compute-util", 8, 0
 #: phase 7: h2o-danube-3-4b trained at full width, 4 x 2048 tokens a step
 #: (the pipeline's rows are seq_len + 1 tokens) from 16 shards over 4
-#: executors; the loss's window mean over the first and last 3 steps.  A
-#: 2-step warmup to a peak of 1e-3: from these random weights 3e-4 moves
-#: the loss by about its batch-to-batch spread in 6 steps, and 2e-3 is
-#: already unsteady
+#: executors, with a 2-step warmup to a peak of 1e-3.  Whether it learns is
+#: read on the run's own batches, at the initial and at the trained
+#: weights: in 6 steps the per-step losses, each on another batch, move by
+#: less than their batch-to-batch spread, so their window means (over the
+#: first and last 3 steps, reported) rise or fall with the draw
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "h2o-danube-3-4b", 4, 2047, 6
 TRAIN_SHARDS, TRAIN_HOSTS, TRAIN_SEED, TRAIN_WINDOW = 16, 4, 0, 3
 TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 1e-3, 2, 20
+#: phase 8: qwen3-moe-30b-a3b served at full width; forward vs decode
+#: replay in fp32 at these depths (its first layers, full width), held at
+#: the first and reported at the others; reduced jamba as the hybrid
+#: check; the train_lm app's moe-30m preset at the app's defaults (batch 8
+#: x 128 tokens from 12 shards over 4 executors), TRAIN_STEPS steps
+MOE_ARCH, HYBRID_ARCH = "qwen3-moe-30b-a3b", "jamba-1.5-large-398b"
+MOE_FP32_DEPTHS = (2, 8, 48)
+MOE_TRAIN_PRESET, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = "moe-30m", 8, 128
+MOE_TRAIN_HOSTS, MOE_TRAIN_SHARDS = 4, 12
 #: flash cases: (label, B, S, H, KV, D, causal, window, softcap, dtype[,
 #: offset]): the reference's eight (tests/test_kernels.py), cases beyond
-#: them, then the shapes the serving path gives the kernel at
-#: h2o-danube-3-4b's widths.  ``offset`` starts each tensor's storage that
-#: many elements past an aligned one.
+#: them, then the shapes the serving and training paths give the kernel at
+#: h2o-danube-3-4b's widths and the serving path at qwen3-moe-30b-a3b's.
+#: ``offset`` starts each tensor's storage that many elements past an
+#: aligned one.
 FLASH_CASES = [
     ("test", 2, 64, 4, 2, 16, True, 0, 0.0, "float32"),
     ("test SWA", 1, 128, 8, 2, 32, True, 32, 0.0, "float32"),
@@ -172,7 +213,11 @@ FLASH_CASES = [
     ("main/serve", 8, 96, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
     ("main/prefill", 1, 8192, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
     ("main/train", 4, 2048, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
+    ("main/serve qwen3-moe", 8, 96, 32, 4, 128, True, 0, 0.0, "bfloat16"),
 ]
+#: the main path's flash cases: each must take the tensor-core kernel
+FLASH_MAIN = ("main/serve", "main/prefill", "main/train",
+              "main/serve qwen3-moe")
 #: query rows per chunk of the plain version at long lengths (bounds its
 #: (Sq, Sk) score tensor)
 FLASH_PLAIN_Q_CHUNK = 1024
@@ -642,7 +687,7 @@ def phase_flash_kernel() -> list[dict]:
             log("[kernel] flash_attention main/serve host us per call: "
                 + ", ".join(f"{n} {t:.2f}"
                             for n, t in row["host_costs_us"].items()))
-    for label in ("main/serve", "main/prefill", "main/train"):
+    for label in FLASH_MAIN:
         row = next(r for r in rows if r["case"] == label)
         if row["path"] != "wgmma":
             raise AssertionError(f"flash {label} took the {row['path']} "
@@ -1175,7 +1220,7 @@ def _layer_by_layer(cfg, params, tokens) -> list[dict]:
                                        .max()),
                 "min_top2_gap": float((top2[..., 1:, 0]
                                        - top2[..., 1:, 1]).min())})
-            x = T._apply_sub(cfg, spec, x, p, pos)
+            x, _ = T._apply_sub(cfg, spec, x, p, pos)
     return rows
 
 
@@ -1213,7 +1258,8 @@ def phase_ssm_serve() -> dict:
         f"{cfg.vocab_size}, untied embeddings; {n_params:,} parameters "
         f"({param_bytes / 1e9:.3f} GB in {cfg.dtype}) drawn on the card in "
         f"{init_s:.2f}s; drawing peaked at {init_peak / 2**30:.3f} GiB (each "
-        f"stacked leaf is drawn whole in fp32, then cast); no cut")
+        f"stacked leaf is drawn one layer at a time in fp32, then cast); no "
+        f"cut")
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.monotonic()
@@ -1366,12 +1412,32 @@ def _ssm_layer_by_layer(cfg, params, tokens) -> list[dict]:
     return rows
 
 
+def _replay(cfg, params, toks, lens) -> torch.Tensor:
+    """The engine's replay: the prompts through the decode step, each
+    request's logits at its last prompt position (B, V)."""
+    from repro_torch.models import init_cache, make_serve_step
+
+    step = make_serve_step(cfg)
+    with torch.inference_mode():
+        cache = init_cache(cfg, len(lens), toks.shape[1], device=toks.device)
+        out = None
+        for t in range(max(lens)):
+            lg, cache = step(params, cache, {"token": toks[:, t: t + 1],
+                                             "pos": t})
+            if out is None:
+                out = torch.zeros_like(lg[:, -1])
+            ending = [i for i, n in enumerate(lens) if n == t + 1]
+            if ending:
+                out[ending] = lg[ending, -1]
+    return out
+
+
 def _ssm_fp32_check(cfg, params, wave) -> dict:
     """The wave's forward and decode replay again with the weights cast to
     fp32: the forward with the scan kernel against the plain chunked scan,
     and against the decode replay at each request's last prompt position
     (max abs diff / max|logit|, and the share of equal argmaxes)."""
-    from repro_torch.models import init_cache, make_forward, make_serve_step
+    from repro_torch.models import make_forward
     from repro_torch.models.transformer import flatten, unflatten
 
     cfg32 = cfg.with_(dtype="float32")
@@ -1388,16 +1454,7 @@ def _ssm_fp32_check(cfg, params, wave) -> dict:
         last = torch.tensor([n - 1 for n in lens], device=toks.device)
         pre = kernel[rows, last]
         del kernel
-        step = make_serve_step(cfg32)
-        cache = init_cache(cfg32, len(lens), toks.shape[1],
-                           device=toks.device)
-        replay = torch.zeros_like(pre)
-        for t in range(max(lens)):
-            lg, cache = step(p32, cache, {"token": toks[:, t: t + 1],
-                                          "pos": t})
-            ending = [i for i, n in enumerate(lens) if n == t + 1]
-            if ending:
-                replay[ending] = lg[ending, -1]
+        replay = _replay(cfg32, p32, toks, lens)
         rel = float((pre - replay).abs().max() / pre.abs().max())
         same = float((pre.argmax(-1) == replay.argmax(-1)).float().mean())
     return {"kernel_vs_plain": kernel_vs_plain, "forward_vs_replay": rel,
@@ -1472,6 +1529,28 @@ def _profile_train(step_fn, state, pipeline, start: int, steps: int = 2):
         "kernels_per_step": sum(e.count for e in events) / steps,
         "top": [(e.key[:70], e.self_device_time_total / steps / 1e3)
                 for e in top]}
+
+
+def _loss_fell(cfg, params, pipeline, steps: int, seed: int, dev) -> dict:
+    """Whether training lowered the loss on its own data: the mean loss
+    over the run's ``steps`` batches (fetched again) at the initial weights
+    (drawn again from ``seed``, as ``train`` drew them) and at ``params``,
+    and the window means of the per-step losses, for the log."""
+    from repro_torch.models import init_params
+    from repro_torch.models.model import make_loss_fn
+
+    batches = [pipeline.fetch_step(i) for i in range(steps)]
+    loss_fn = make_loss_fn(cfg)
+
+    def mean_loss(p) -> float:
+        with torch.no_grad():
+            return float(np.mean([float(loss_fn(p, {"tokens": b}))
+                                  for b in batches]))
+    after = mean_loss(params)
+    before = mean_loss(init_params(
+        cfg, torch.Generator(dev).manual_seed(seed), dev))
+    return {"before": before, "after": after,
+            "fell": bool(np.isfinite(after) and after < before)}
 
 
 def _attention_grads(cfg, params, tokens) -> list[dict]:
@@ -1615,10 +1694,16 @@ def phase_train() -> dict:
         losses = result.losses
         w = TRAIN_WINDOW
         first, last = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+        fell = _loss_fell(cfg, result.state.params, pipeline, TRAIN_STEPS,
+                          TRAIN_SEED, dev)
         log(f"[train] losses {', '.join(f'{x:.4f}' for x in losses)}: mean "
-            f"of the first {w} {first:.4f}, of the last {w} {last:.4f}")
-        if not (all(np.isfinite(losses)) and last < first):
-            failures.append(f"the loss did not fall ({first} -> {last})")
+            f"of the first {w} {first:.4f}, of the last {w} {last:.4f} "
+            f"(reported); mean loss over the run's {TRAIN_STEPS} batches at "
+            f"the initial weights {fell['before']:.4f}, at the trained ones "
+            f"{fell['after']:.4f} (must fall)")
+        if not (all(np.isfinite(losses)) and fell["fell"]):
+            failures.append(f"the loss did not fall ({fell['before']} -> "
+                            f"{fell['after']} on the run's batches)")
         step_seconds = result.step_seconds
         step_ms = statistics.median(step_seconds[1:]) * 1e3
         flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ + 1)
@@ -1681,7 +1766,7 @@ def phase_train() -> dict:
             "seq": TRAIN_SEQ + 1, "steps": TRAIN_STEPS,
             "optimizer": {"peak_lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
                           "total": TRAIN_TOTAL},
-            "losses": losses, "step_ms": step_ms,
+            "losses": losses, "loss_on_batches": fell, "step_ms": step_ms,
             "step_ms_all": [t * 1e3 for t in step_seconds],
             "tokens_per_s": tokens_per_step / (step_ms * 1e-3),
             "model_flops_per_step": flops, "mfu_bf16": mfu,
@@ -1690,6 +1775,538 @@ def phase_train() -> dict:
             "launches_wgmma": counts["flash_attention/wgmma"],
             "launches_all": counts, "profile": prof,
             "attention_grads": grads, "two_layer_fp32": small, "card": card}
+
+
+# --------------------------------------------------------------------------
+# phase 8: serving qwen3-moe-30b-a3b through the launcher's code path
+# --------------------------------------------------------------------------
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max abs diff / max|want|."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _kept_pairs(cfg, h, p) -> torch.Tensor:
+    """Which (token, choice) pairs of an MoE layer's input ``h`` (B, S, D)
+    fall within capacity, (B, S, k) bool: the routing and queue order of
+    ``moe_block`` itself."""
+    from repro_torch.models import moe as MoE
+
+    B, S, D = h.shape
+    xt = h.reshape(B * S, D)
+    gates, idx = MoE.router_probs(xt, p["w_router"], cfg.top_k)
+    cap = MoE.capacity(B * S, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    _, (_, _, in_cap) = MoE._local_route(xt, gates, idx, cfg.n_experts, cap)
+    return in_cap.reshape(B, S, cfg.top_k)
+
+
+def _moe_walk(cfg, params, tokens, check_layers) -> dict:
+    """The forward of an attention + MoE model (qwen3's one-sub-layer
+    pattern) walked layer by layer, as ``_apply_sub`` runs it: logits,
+    each layer's kept pairs (L, B, S, k), and on the layers in
+    ``check_layers`` each layer's attention block against the plain
+    ``ref`` attention and its MoE block against ``moe_block_onehot``, each
+    on the walk's own inputs (max abs diff / max|output|)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import transformer as T
+
+    spec = cfg.pattern[0]
+    var = T._variant(cfg, spec)
+    kept, checks = [], []
+    with torch.inference_mode():
+        x = T.embed_inputs(cfg, params, {"tokens": tokens})
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i in range(cfg.n_blocks):
+            p = T._layer(params["blocks"]["sub0"], i)
+            h = T._norm(cfg, x, p, "ln1")
+            a = L.attention_block(h, p, pos, var, cfg.rope_theta,
+                                  impl=cfg.attn_impl)
+            row = {"layer": i}
+            if i in check_layers:
+                row["attention_vs_ref"] = _rel(a, L.attention_block(
+                    h, p, pos, var, cfg.rope_theta, impl="ref"))
+            x = x + a
+            h = T._norm(cfg, x, p, "ln2")
+            m, aux = MoE.moe_block(h, p, cfg.top_k, cfg.mlp_act,
+                                   cfg.capacity_factor)
+            if i in check_layers:
+                m1, aux1 = MoE.moe_block_onehot(h, p, cfg.top_k, cfg.mlp_act,
+                                                cfg.capacity_factor)
+                row.update(moe_vs_onehot=_rel(m, m1),
+                           aux=float(aux), aux_onehot=float(aux1))
+                checks.append(row)
+            kept.append(_kept_pairs(cfg, h, p))
+            x = x + m
+        logits = T._unembed(cfg, params, T._norm(cfg, x, params, "final"))
+    return {"logits": logits, "kept": torch.stack(kept), "checks": checks}
+
+
+def _rows_against_replay(pre, rep, kept, lens) -> list[dict]:
+    """Per request: whether any of its pairs up to its last prompt position
+    was dropped in any layer, how many, and its forward logits against the
+    replay's (max abs diff / max|logit| of the wave's forward)."""
+    scale = float(pre.float().abs().max())
+    rows = []
+    for b, n in enumerate(lens):
+        dropped = int((~kept[:, b, :n]).sum())
+        rows.append({"row": b, "dropped_pairs": dropped,
+                     "forward_vs_replay": float(
+                         (pre[b].float() - rep[b].float()).abs().max())
+                     / scale,
+                     "argmax_equal": bool(pre[b].argmax() == rep[b].argmax())})
+    return rows
+
+
+def _widened(params) -> dict:
+    """The weights for an fp32 run without an fp32 copy of the blocks: the
+    embedding tables in fp32 make every activation fp32, and each block
+    weight is widened as it is used (every ``p[...].to(x.dtype)``), so the
+    numbers are the bf16 weights' exactly."""
+    return {k: (v if k == "blocks" else v.float()) for k, v in params.items()}
+
+
+def _moe_fp32_check(cfg, params, wave, depth: int) -> dict:
+    """The wave's first ``depth`` layers at full width in fp32, the
+    weights widened: the walk (flash on its fp32 kernel) with each layer's
+    MoE block against the one-hot formulation (on every layer at a depth
+    of 2, on the first 2 beyond), its kept pairs, and the replay through
+    the decode step; forward against replay per request."""
+    cut = cfg.with_(n_layers=depth, dtype="float32")
+    p32 = _widened(dict(params, blocks={
+        sub: {k: v[:depth] for k, v in leaves.items()}
+        for sub, leaves in params["blocks"].items()}))
+    toks, lens = wave.tokens, wave.lens
+    walk = _moe_walk(cut, p32, toks, set(range(min(depth, 2))))
+    rows = torch.arange(len(lens), device=toks.device)
+    last = torch.tensor([n - 1 for n in lens], device=toks.device)
+    pre = walk["logits"][rows, last]
+    del walk["logits"]
+    rep = _replay(cut, p32, toks, lens)
+    return {"depth": depth,
+            "rows": _rows_against_replay(pre, rep, walk["kept"], lens),
+            "checks": walk["checks"],
+            "dropped_by_layer": (~walk["kept"]).sum((1, 2, 3)).tolist()}
+
+
+def _stream_divergence(cfg, params, tokens) -> list[float]:
+    """The wave in fp32 (weights widened) through two forwards that differ
+    only in their attention, flash (its fp32 kernel) and the plain
+    ``ref``: how far apart their residual streams are after each layer,
+    max abs diff / max|x|.  No decode step is involved: this is how far
+    the random weights amplify fp32 rounding with depth."""
+    from repro_torch.models import transformer as T
+
+    cfg32 = cfg.with_(dtype="float32")
+    p32 = _widened(params)
+    spec = cfg.pattern[0]
+    out = []
+    with torch.inference_mode():
+        x = T.embed_inputs(cfg32, p32, {"tokens": tokens})
+        pos = torch.arange(x.shape[1], device=x.device)
+        xs = {"flash": x, "ref": x}
+        for i in range(cfg.n_blocks):
+            p = T._layer(p32["blocks"]["sub0"], i)
+            for impl in xs:
+                xs[impl], _ = T._apply_sub(cfg32.with_(attn_impl=impl), spec,
+                                           xs[impl], p, pos)
+            out.append(_rel(xs["flash"], xs["ref"]))
+    return out
+
+
+def _experts_decode_ms(cfg, params, dev) -> dict:
+    """Card time (graph-replayed, ``device_ms``) of one layer's MoE block
+    and of its expert products alone at the decode step's shape (B=8
+    tokens: 10 capacity slots for each of the 128 experts), on layer 0's
+    weights."""
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import transformer as T
+
+    p = T._layer(params["blocks"]["sub0"], 0)
+    g = torch.Generator(dev).manual_seed(7)
+    h = torch.randn(8, 1, cfg.d_model, generator=g, device=dev).to(
+        torch.bfloat16)
+    xt = h.reshape(8, cfg.d_model)
+    gates, idx = MoE.router_probs(xt, p["w_router"], cfg.top_k)
+    cap = MoE.capacity(8, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    disp, _ = MoE._local_route(xt, gates, idx, cfg.n_experts, cap)
+    with torch.inference_mode():
+        experts = device_ms(lambda: MoE._experts(disp, p, cfg.mlp_act),
+                            reps=10, inner=10)
+        block = device_ms(lambda: MoE.moe_block_sharded(h, p, cfg),
+                          reps=10, inner=10)
+    return {"capacity": cap, "experts_ms_per_layer": experts,
+            "moe_block_ms_per_layer": block}
+
+
+def _moe_serve(failures: list) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.device import describe
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.transformer import flatten
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(MOE_ARCH).with_(attn_impl="flash")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SERVE_SEED),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    leaves = [t for _, t in flatten(params)]
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"[moe] {cfg.name} at its published widths: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv "
+        f"heads of {cfg.head_dim_}, {cfg.n_experts} experts top-"
+        f"{cfg.top_k} of d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied "
+        f"embeddings, capacity factor {cfg.capacity_factor}; {n_params:,} "
+        f"parameters ({param_bytes / 1e9:.3f} GB in {cfg.dtype}) drawn on the "
+        f"card in {init_s:.2f}s (drawing peaked at {init_peak / 2**30:.3f} "
+        f"GiB); no cut ({held / 2**30:.3f} GiB still held from earlier "
+        f"phases)")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.monotonic()
+    eng, done = launch.serve(cfg, SERVE_REQUESTS, SERVE_REPLICAS,
+                             SERVE_POLICY, SERVE_MAX_NEW, SERVE_SEED, dev,
+                             params=params)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    counts = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for line in launch.report(eng, done, SERVE_REPLICAS, SERVE_POLICY):
+        log(line)
+    card = describe(dev)
+    if len(done) != SERVE_REQUESTS or any(
+            len(r.output) != SERVE_MAX_NEW or
+            not all(0 <= t < cfg.vocab_size for t in r.output)
+            for r in done):
+        failures.append("moe: not every request got its tokens")
+    n_flash = cfg.n_layers * len(eng.waves)
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"flash_attention": n_flash,
+                     "flash_attention/wgmma": n_flash})
+    log(f"[moe] launches {counts} (flash_attention: layers x waves = "
+        f"{cfg.n_layers} x {len(eng.waves)} = {n_flash}, all on tensor "
+        f"cores)")
+    if counts != expected:
+        failures.append(f"moe: launches {counts}, expected {expected}")
+    if not peak < 80e9:
+        failures.append(f"moe: peak device memory {peak} B")
+
+    # a decode step routes one token of each of the wave's B requests: an
+    # expert gets at most B pairs, so no step drops one where the capacity
+    # holds B (qwen3: int(8 x 1.25 x 1) = 10 slots for at most 8 pairs)
+    b = eng.waves[0].tokens.shape[0]
+    decode_cap = MoE.capacity(b, cfg.n_experts, cfg.top_k,
+                              cfg.capacity_factor)
+    log(f"[moe] decode: {decode_cap} slots per expert for at most {b} pairs "
+        f"a step, so no decode step drops a pair")
+    if decode_cap < b:
+        failures.append(f"moe: a decode step can drop pairs ({decode_cap} "
+                        f"slots, {b} requests)")
+
+    # every layer of every wave: attention and MoE against their plain
+    # versions, and the pairs each layer drops
+    walks, waves = [], []
+    for k, w in enumerate(eng.waves):
+        walk = _moe_walk(cfg, params, w.tokens, set(range(cfg.n_blocks)))
+        rows = torch.arange(len(w.lens), device=dev)
+        last = torch.tensor([n - 1 for n in w.lens], device=dev)
+        walk_vs_engine = float((walk["logits"][rows, last]
+                                - w.prefill_logits).abs().max())
+        del walk["logits"]
+        dropped = (~walk["kept"]).sum((1, 2, 3)).tolist()
+        per_row = _rows_against_replay(w.prefill_logits, w.replay_logits,
+                                       walk["kept"], w.lens)
+        walks.append(walk)
+        waves.append({"forward_ms": w.forward_s * 1e3,
+                      "replay_ms_per_step": w.replay_s * 1e3 / w.replay_steps,
+                      "decode_ms_per_step": w.decode_s * 1e3 / w.decode_steps,
+                      "dropped_by_layer": dropped, "rows": per_row,
+                      "walk_vs_engine_abs": walk_vs_engine})
+        log(f"[moe] wave {k}: dropped (token, choice) pairs per layer "
+            f"(of {w.tokens.numel() * cfg.top_k}, padding included): "
+            + " ".join(str(d) for d in dropped)
+            + f"; the walk's logits vs the engine forward's, max abs diff "
+            f"{walk_vs_engine:.3g}")
+        log(f"[moe] wave {k} (bf16): forward vs decode replay per request, "
+            f"max abs diff / max|logit| (pairs dropped up to its last prompt "
+            f"position): "
+            + ", ".join(f"{r['forward_vs_replay']:.3g} ({r['dropped_pairs']})"
+                        for r in per_row)
+            + " (reported, not bounded: bf16 at full width)")
+    attn = max(c["attention_vs_ref"] for wk in walks for c in wk["checks"])
+    moe = max(c["moe_vs_onehot"] for wk in walks for c in wk["checks"])
+    aux_gap = max(abs(c["aux"] - c["aux_onehot"]) / c["aux_onehot"]
+                  for wk in walks for c in wk["checks"])
+    log(f"[moe] every layer of both waves on the flash forward's own hidden "
+        f"states (bf16), max abs diff / max|output|: attention flash vs ref "
+        f"{attn:.4g}, MoE block (sort+gather) vs moe_block_onehot {moe:.4g}, "
+        f"aux relative {aux_gap:.3g} (tolerance 2e-2 on each)")
+    if not attn <= 2e-2:
+        failures.append(f"moe: flash attention block vs ref {attn}")
+    if not moe <= 2e-2:
+        failures.append(f"moe: moe_block vs moe_block_onehot {moe}")
+    if not aux_gap <= 2e-2:
+        failures.append(f"moe: aux vs onehot {aux_gap}")
+    del walks
+
+    # fp32, the weights widened, at each depth: the MoE block against the
+    # one-hot one, and forward vs replay on the requests that dropped no
+    # pair up to their last prompt position (the first depth is held; at
+    # the full depth the random weights' sharp attention makes fp32
+    # rounding grow to O(1) over the layers, as bf16's does sooner)
+    fp32 = {d: [_moe_fp32_check(cfg, params, w, d) for w in eng.waves]
+            for d in MOE_FP32_DEPTHS}
+    moe32 = max(c["moe_vs_onehot"] for runs in fp32.values() for f in runs
+                for c in f["checks"])
+    log(f"[moe] MoE block with the weights in fp32 (layers 0-1 of both "
+        f"waves at each depth): sort+gather vs one-hot, max abs diff / "
+        f"max|output| {moe32:.3g} (tolerance 1e-4)")
+    if not moe32 <= 1e-4:
+        failures.append(f"moe: fp32 moe_block vs onehot {moe32}")
+    fp32_summary = {}
+    for d, runs in fp32.items():
+        clean = [r for f in runs for r in f["rows"] if r["dropped_pairs"] == 0]
+        worst = max((r["forward_vs_replay"] for r in clean), default=None)
+        fp32_summary[d] = {"clean_rows": len(clean), "worst": worst,
+                           "argmax_equal": sum(r["argmax_equal"]
+                                               for r in clean)}
+        for k, f in enumerate(runs):
+            log(f"[moe] fp32, first {d} layers, wave {k}: dropped pairs per "
+                f"layer " + " ".join(str(n) for n in f["dropped_by_layer"])
+                + "; forward vs decode replay per request (pairs dropped up "
+                "to its last prompt position): "
+                + ", ".join(f"{r['forward_vs_replay']:.3g} "
+                            f"({r['dropped_pairs']})" for r in f["rows"]))
+        bounded = d == MOE_FP32_DEPTHS[0]
+        log(f"[moe] fp32, first {d} of {cfg.n_layers} layers: {len(clean)} "
+            f"of {sum(len(f['rows']) for f in runs)} requests dropped no "
+            f"pair up to their last prompt position; their forward vs decode "
+            f"replay, max abs diff / max|logit| "
+            + ("none" if worst is None else f"{worst:.4g}")
+            + f", argmax equal in {fp32_summary[d]['argmax_equal']} "
+            + ("(tolerance 2e-2)" if bounded else "(reported, not bounded)"))
+        if bounded and not clean:
+            failures.append(f"moe: no request without a dropped pair in "
+                            f"the first {d} layers")
+        elif bounded and not worst <= 2e-2:
+            failures.append(f"moe: fp32 forward vs replay at depth {d} on "
+                            f"requests without a drop {worst}")
+
+    divergence = _stream_divergence(cfg, params, eng.waves[-1].tokens)
+    marks = sorted({k for k in (0, 1, 3, 7, 15, 31) if k < len(divergence)}
+                   | {len(divergence) - 1})
+    log("[moe] fp32 (weights widened), last wave: the residual streams of "
+        "the forward with flash and with ref attention apart after layer k, "
+        "max abs diff / max|x|: "
+        + ", ".join(f"k={k}: {divergence[k]:.3g}" for k in marks)
+        + " (reported: the growth with depth that the forward vs replay "
+        "comparison meets beyond the first layers)")
+
+    prof = _profile_decode(eng)
+    experts = _experts_decode_ms(cfg, params, dev)
+    experts_ms = experts["experts_ms_per_layer"] * cfg.n_layers
+    block_ms = experts["moe_block_ms_per_layer"] * cfg.n_layers
+    expert_bytes = (cfg.n_layers * cfg.n_experts * 3 * cfg.d_model
+                    * cfg.d_ff * 2)
+    bound_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[moe] decode step profiled ({card}): wall "
+        f"{prof['wall_ms_per_step']:.3f} ms, card busy "
+        f"{prof['busy_ms_per_step']:.3f} ms ({prof['busy_share']:.3f} of the "
+        f"wall), {prof['kernels_per_step']:.0f} kernels per step; top: "
+        + "; ".join(f"{k} {ms:.3f} ms" for k, ms in prof["top"]))
+    log(f"[moe] decode step's MoE on the card ({card}; layer 0's weights, "
+        f"graph-replayed, x {cfg.n_layers} layers): the experts' products "
+        f"{experts_ms:.3f} ms, the whole MoE blocks {block_ms:.3f} ms, of the "
+        f"step's {prof['busy_ms_per_step']:.3f} ms busy; reading every "
+        f"expert's weights ({expert_bytes / 1e9:.2f} GB, "
+        f"{experts['capacity']} slots each) bounds the experts at "
+        f"{bound_ms:.2f} ms ({bound_ms / experts_ms:.3f} of it reached)")
+    steps = sum(w.replay_steps + w.decode_steps for w in eng.waves)
+    step_ms = sum(w.replay_s + w.decode_s for w in eng.waves) * 1e3 / steps
+    log(f"[moe] on {card}: serve wall {wall_s:.3f}s for {SERVE_REQUESTS} "
+        f"requests; forward (prefill) "
+        + ", ".join(f"{w['forward_ms']:.2f}" for w in waves)
+        + f" ms per wave; decode {step_ms:.3f} ms per step over {steps} "
+        f"steps; peak device memory {peak / 2**30:.3f} GiB (weights "
+        f"{param_bytes / 2**30:.3f} GiB included)")
+    return {"arch": cfg.name, "params": n_params, "param_bytes": param_bytes,
+            "init_s": init_s, "init_peak_memory_bytes": init_peak,
+            "wall_s": wall_s, "launches": counts["flash_attention"],
+            "launches_wgmma": counts["flash_attention/wgmma"],
+            "launches_all": counts, "waves": waves,
+            "attention_vs_ref": attn, "moe_vs_onehot": moe,
+            "fp32": fp32, "fp32_summary": fp32_summary,
+            "fp32_stream_divergence": divergence,
+            "fp32_moe_vs_onehot": moe32,
+            "decode_ms_per_step": step_ms, "decode_profile": prof,
+            "decode_experts_ms": experts_ms, "decode_moe_ms": block_ms,
+            "decode_experts_bound_ms": bound_ms, "peak_memory_bytes": peak,
+            "held_before_bytes": held,
+            "prefill_tokens": eng.prefill_tokens,
+            "reused_tokens": eng.reused_tokens,
+            "router": eng.router.stats(), "card": card}
+
+
+def _hybrid_serve(failures: list) -> dict:
+    """One wave of reduced jamba (attention, Mamba, dense and MoE
+    sub-layers in one pattern) through the launcher's code path, with the
+    flash and scan kernels in the forward, in fp32 and in bf16; the
+    forward's logits against the plain path's (ref attention, chunked
+    scan)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import make_forward
+
+    dev = torch.device("cuda", 0)
+    base = get_config(HYBRID_ARCH).reduced().with_(attn_impl="flash",
+                                                   use_mamba_kernel=True)
+    n_attn = base.n_blocks * sum(s.kind == "attn" for s in base.pattern)
+    n_mamba = base.n_blocks * sum(s.kind == "mamba" for s in base.pattern)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = base.with_(dtype=dtype)
+        _reset_launches()
+        eng, done = launch.serve(cfg, launch.WAVE, SERVE_REPLICAS,
+                                 SERVE_POLICY, SERVE_MAX_NEW, SERVE_SEED, dev)
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        w = eng.waves[0]
+        with torch.inference_mode():
+            kernel, _ = make_forward(cfg)(eng.params, {"tokens": w.tokens})
+            plain, _ = make_forward(cfg.with_(attn_impl="ref",
+                                              use_mamba_kernel=False))(
+                eng.params, {"tokens": w.tokens})
+        rel = _rel(kernel, plain)
+        # the kernels the shape rules give: bf16 at head dim 16 on tensor
+        # cores, fp32 on the SIMT kernel; the scan's lanes by B and I
+        fa_path = "wgmma" if dtype == "bfloat16" else "simt"
+        scan_path = ms.kernel_path(w.tokens.shape[0], cfg.d_inner)
+        expected = dict.fromkeys(counts, 0)
+        expected.update({"flash_attention": n_attn,
+                         f"flash_attention/{fa_path}": n_attn,
+                         "mamba_scan": n_mamba,
+                         f"mamba_scan/{scan_path}": n_mamba})
+        log(f"[hybrid] reduced {cfg.name} in {dtype} ({cfg.n_layers} layers "
+            f"of pattern " + " ".join(f"{s.kind}/{s.mlp}" for s in cfg.pattern)
+            + f", {cfg.n_experts} experts top-{cfg.top_k}), one wave of "
+            f"{len(done)} requests: launches {counts}; forward (flash + scan "
+            f"kernels) vs the plain path (ref attention, chunked scan), max "
+            f"abs diff / max|logit| {rel:.4g}"
+            + (" (tolerance 2e-2)" if dtype == "float32" else
+               " (reported, not bounded: bf16 routing near-ties flip)"))
+        if counts != expected:
+            failures.append(f"hybrid {dtype}: launches {counts}, expected "
+                            f"{expected}")
+        if dtype == "float32" and not rel <= 2e-2:
+            failures.append(f"hybrid: fp32 kernel path vs plain {rel}")
+        out[dtype] = {"launches": counts, "kernel_vs_plain": rel}
+    return out
+
+
+def _moe_train(failures: list) -> dict:
+    """The app's moe-30m preset trained through its code path
+    (``apps.train_lm``: its pipeline and optimizer) for a few steps on the
+    card; then, at the trained state, the aux loss and every router
+    slice's gradient."""
+    from repro_torch.apps import train_lm
+    from repro_torch.device import describe
+    from repro_torch.models.model import make_hidden_forward, make_loss_fn
+    from repro_torch.train import adamw, train
+
+    dev = torch.device("cuda", 0)
+    cfg = train_lm.PRESETS[MOE_TRAIN_PRESET].with_(attn_impl="flash")
+    pipeline = train_lm.make_pipeline(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                                      MOE_TRAIN_HOSTS, MOE_TRAIN_SHARDS,
+                                      TRAIN_SEED, dev)
+    try:
+        _reset_launches()
+        t0 = time.monotonic()
+        result = train(cfg, pipeline, TRAIN_STEPS,
+                       optimizer=adamw(train_lm.PEAK_LR,
+                                       warmup=train_lm.WARMUP,
+                                       total=TRAIN_STEPS),
+                       seed=TRAIN_SEED, log_every=1, log=log, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        counts = _read_launches()
+        tokens = pipeline.fetch_step(0)
+        fell = _loss_fell(cfg, result.state.params, pipeline, TRAIN_STEPS,
+                          TRAIN_SEED, dev)
+    finally:
+        pipeline.close()
+    n_flash = 2 * cfg.n_layers * TRAIN_STEPS
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"flash_attention": n_flash,
+                     "flash_attention/wgmma": n_flash})
+    if counts != expected:
+        failures.append(f"moe train: launches {counts}, expected {expected}")
+    losses = result.losses
+    w = TRAIN_WINDOW
+    first, last = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+    params = result.state.params
+    router = params["blocks"]["sub0"]["w_router"].requires_grad_()
+    with torch.no_grad():
+        _, aux = make_hidden_forward(cfg)(params, {"tokens": tokens})
+    loss = make_loss_fn(cfg)(params, {"tokens": tokens})
+    (g,) = torch.autograd.grad(loss, [router])
+    bad = [i for i in range(g.shape[0])
+           if not (bool(torch.isfinite(g[i]).all())
+                   and float(g[i].abs().max()) > 0)]
+    step_ms = statistics.median(result.step_seconds[1:]) * 1e3
+    log(f"[moe-train] {cfg.name} ({cfg.param_count():,} parameters, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}) through apps.train_lm's "
+        f"pipeline and optimizer, {TRAIN_STEPS} steps of {MOE_TRAIN_BATCH} x "
+        f"{MOE_TRAIN_SEQ} tokens on {describe(dev)}: launches {counts}; "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)} (mean of the first "
+        f"{w} {first:.4f}, of the last {w} {last:.4f}, reported); mean loss "
+        f"over the run's batches at the initial weights {fell['before']:.4f}, "
+        f"at the trained ones {fell['after']:.4f} (must fall); aux at the "
+        f"trained state {float(aux):.4f}; w_router gradient finite and "
+        f"non-zero in "
+        f"{g.shape[0] - len(bad)} of {g.shape[0]} layers; {step_ms:.1f} ms "
+        f"per step (median of steps 2-{TRAIN_STEPS}), train wall "
+        f"{wall_s:.1f}s")
+    if not (all(np.isfinite(losses)) and fell["fell"]):
+        failures.append(f"moe train: the loss did not fall "
+                        f"({fell['before']} -> {fell['after']} on the run's "
+                        f"batches)")
+    if not (bool(torch.isfinite(aux)) and float(aux) > 0):
+        failures.append(f"moe train: aux {float(aux)}")
+    if bad:
+        failures.append(f"moe train: w_router gradient zero or non-finite "
+                        f"in layers {bad}")
+    return {"preset": MOE_TRAIN_PRESET, "losses": losses,
+            "loss_on_batches": fell, "aux": float(aux),
+            "launches": counts["flash_attention"],
+            "launches_all": counts, "router_grad_bad_layers": bad,
+            "step_ms": step_ms, "wall_s": wall_s}
+
+
+def phase_moe() -> dict:
+    """Phase 8: qwen3-moe-30b-a3b served at full width, the hybrid check
+    and the moe-30m training check; any failure raises at the end."""
+    failures: list = []
+    serve = _moe_serve(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid = _hybrid_serve(failures)
+    trained = _moe_train(failures)
+    if failures:
+        raise AssertionError("moe: " + "; ".join(failures))
+    return {"serve": serve, "hybrid": hybrid, "train": trained}
 
 
 def main(argv=None) -> int:
@@ -1715,6 +2332,7 @@ def main(argv=None) -> int:
     serve = phase_serve()
     ssm = phase_ssm_serve()
     trained = phase_train()
+    moe = phase_moe()
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
@@ -1746,15 +2364,31 @@ def main(argv=None) -> int:
     fa_rows = {r["case"]: r for r in kernels["flash_attention"]}
     fa_main, fa_prefill = fa_rows["main/serve"], fa_rows["main/prefill"]
     fa_train = fa_rows["main/train"]
+    fa_moe = fa_rows["main/serve qwen3-moe"]
+    hybrid = moe["hybrid"]
+    launches_hybrid = {k: sum(h["launches"][k] for h in hybrid.values())
+                       for k in ("flash_attention", "flash_attention/wgmma",
+                                 "mamba_scan")}
     line["kernels"].append({
         "name": "flash_attention",
         "route": "cuda",
         "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
-        "launches": serve["launches"] + trained["launches"],
+        "launches": (serve["launches"] + trained["launches"]
+                     + moe["serve"]["launches"]
+                     + launches_hybrid["flash_attention"]
+                     + moe["train"]["launches"]),
         "launches_serve": serve["launches"],
         "launches_train": trained["launches"],
-        "launches_wgmma": serve["launches_wgmma"] + trained["launches_wgmma"],
+        "launches_moe_serve": moe["serve"]["launches"],
+        "launches_hybrid": launches_hybrid["flash_attention"],
+        "launches_moe_train": moe["train"]["launches"],
+        "launches_wgmma": (serve["launches_wgmma"]
+                           + trained["launches_wgmma"]
+                           + moe["serve"]["launches_wgmma"]
+                           + launches_hybrid["flash_attention/wgmma"]
+                           + moe["train"]["launches_all"][
+                               "flash_attention/wgmma"]),
         "path": fa_main["path"],
         "shape": fa_main["shape"],
         "max_abs_err": max(fa_main["max_abs_err"], fa_prefill["max_abs_err"]),
@@ -1775,6 +2409,10 @@ def main(argv=None) -> int:
             "path", "shape", "max_abs_err", "ms", "plain_ms", "host_ms",
             "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
             "sdpa_flag_ms", "tflops")},
+        "serve_qwen3_moe": {k: fa_moe[k] for k in (
+            "path", "shape", "max_abs_err", "ms", "plain_ms", "host_ms",
+            "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
+            "sdpa_flag_ms", "tflops")},
     })
     ms_rows = {r["case"]: r for r in kernels["mamba_scan"]}
     ms_main, ms_prefill = ms_rows["main/serve"], ms_rows["main/prefill"]
@@ -1783,7 +2421,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": MAMBA_SOURCE,
         "replaces": MAMBA_TPU_KERNEL,
-        "launches": ssm["launches"],
+        "launches": ssm["launches"] + launches_hybrid["mamba_scan"],
+        "launches_ssm_serve": ssm["launches"],
+        "launches_hybrid": launches_hybrid["mamba_scan"],
         "launches_by_path": ssm["launches_by_path"],
         "path": ms_main["path"],
         "bound_share": ms_main["bound_share"],
@@ -1804,6 +2444,7 @@ def main(argv=None) -> int:
         args.json.write_text(json.dumps(
             {"env": env, "kernels": kernels, "flat": flat, "pipeline": pipe,
              "serve": serve, "ssm_serve": ssm, "train": trained,
+             "moe": moe,
              "kernels_line": line,
              "seconds": time.monotonic() - t_start},
             indent=2, default=str) + "\n")

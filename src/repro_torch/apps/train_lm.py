@@ -8,6 +8,7 @@ reference's.
 
   PYTHONPATH=src python -m repro_torch.apps.train_lm
   PYTHONPATH=src python -m repro_torch.apps.train_lm --preset 100m --steps 300
+  PYTHONPATH=src python -m repro_torch.apps.train_lm --preset moe-30m
   PYTHONPATH=src python -m repro_torch.apps.train_lm --device cpu --steps 4
 """
 from __future__ import annotations
@@ -40,6 +41,26 @@ PRESETS = {
 }
 
 
+#: the example's optimizer: AdamW to this peak after a linear warmup, then
+#: cosine decay to the last step
+PEAK_LR, WARMUP = 3e-4, 20
+
+
+def make_pipeline(cfg: ModelConfig, global_batch: int, seq_len: int,
+                  hosts: int, shards: int, seed: int,
+                  device) -> DiffusionDataPipeline:
+    """The example's pipeline: synthetic shards of at least 2^17 tokens,
+    read through the diffusion runtime's ``hosts`` executors."""
+    pipe_cfg = PipelineConfig(
+        global_batch=global_batch, seq_len=seq_len, n_hosts=hosts,
+        policy=DispatchPolicy.MAX_COMPUTE_UTIL, host_cache_bytes=1 << 28,
+        seed=seed)
+    spec = ShardSpec(n_shards=shards,
+                     tokens_per_shard=max(pipe_cfg.tokens_per_batch, 1 << 17),
+                     vocab_size=cfg.vocab_size, seed=seed)
+    return DiffusionDataPipeline(pipe_cfg, spec, device=device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="10m", choices=sorted(PRESETS))
@@ -58,18 +79,13 @@ def main(argv=None) -> int:
     n_params = cfg.param_count()
     print(f"training {cfg.name}: {n_params / 1e6:.1f}M params, "
           f"{args.steps} steps, batch {args.global_batch}x{args.seq_len}")
-    pipe_cfg = PipelineConfig(
-        global_batch=args.global_batch, seq_len=args.seq_len,
-        n_hosts=args.hosts, policy=DispatchPolicy.MAX_COMPUTE_UTIL,
-        host_cache_bytes=1 << 28, seed=args.seed)
-    spec = ShardSpec(n_shards=args.shards,
-                     tokens_per_shard=max(pipe_cfg.tokens_per_batch, 1 << 17),
-                     vocab_size=cfg.vocab_size, seed=args.seed)
-    pipeline = DiffusionDataPipeline(pipe_cfg, spec, device=dev)
+    pipeline = make_pipeline(cfg, args.global_batch, args.seq_len,
+                             args.hosts, args.shards, args.seed, dev)
     try:
         res = train(cfg, pipeline, n_steps=args.steps,
                     ckpt_dir=args.ckpt_dir, ckpt_every=25,
-                    optimizer=adamw(3e-4, warmup=20, total=args.steps),
+                    optimizer=adamw(PEAK_LR, warmup=WARMUP,
+                                    total=args.steps),
                     seed=args.seed, device=dev)
     finally:
         pipeline.close()

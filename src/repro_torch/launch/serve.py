@@ -4,6 +4,7 @@ The port of the reference's ``repro.launch.serve``, on the card:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --reduced --device cpu          # a small rehearsal on the CPU
 
@@ -16,7 +17,9 @@ reference's ``blocked`` attention on an accelerator; ``--mamba-kernel``
 (the default) runs each Mamba layer's selective scan in the forward
 through the hand-written CUDA scan kernel, which is what replaces the
 reference's chunked plain scan on an accelerator (``--no-mamba-kernel``
-selects the plain path, for comparison).
+selects the plain path, for comparison).  MoE layers route through the
+port of the reference's capacity-bounded ``moe_block``; the times line
+names their experts and top-k.
 """
 from __future__ import annotations
 
@@ -84,6 +87,8 @@ def report(eng: ServeEngine, done: list[Request], replicas: int,
         ran_kernel = cfg.use_mamba_kernel and eng.device.type == "cuda"
         mixers.append("selective scan "
                       + ("mamba_scan kernel" if ran_kernel else "plain"))
+    if any(s.mlp == "moe" for s in cfg.pattern):
+        mixers.append(f"MoE {cfg.n_experts} experts top-{cfg.top_k}")
     lines = [
         f"[serve] served {len(done)} requests on {replicas} replicas "
         f"({policy})",

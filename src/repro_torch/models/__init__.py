@@ -1,8 +1,10 @@
 """The LM substrate of the port: configuration schema, the decoder
-and its step builders (counterpart of ``repro.models``)."""
+and its step builders, and the MoE layer (counterpart of
+``repro.models``)."""
 from .config import LayerSpec, ModelConfig
 from .model import (lm_loss, make_forward, make_loss_fn, make_prefill,
                     make_serve_step, make_train_step)
+from .moe import moe_block, moe_block_onehot, router_probs
 from .transformer import init_cache, init_params, param_defs
 
 __all__ = [
@@ -16,5 +18,8 @@ __all__ = [
     "make_prefill",
     "make_serve_step",
     "make_train_step",
+    "moe_block",
+    "moe_block_onehot",
     "param_defs",
+    "router_probs",
 ]

@@ -8,7 +8,8 @@ functions over (params, batch), which callers run under
 the training side.  PyTorch runs eagerly, so there is nothing to jit.
 
 Left out, each for its slice (``ROADMAP.md``): the encoder-decoder and
-vision branches; training Mamba sub-layers (the scan has no backward);
+vision branches; training Mamba sub-layers (the scan has no backward, so
+jamba does not train yet);
 ``input_specs``, ``abstract_cache`` and ``batch_logical`` (the dry-run
 and the mesh).
 """
@@ -67,7 +68,7 @@ def make_prefill(cfg: ModelConfig):
     def prefill(params, batch):
         x = T.embed_inputs(cfg, params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x = T._blocks(cfg, x, params["blocks"], positions)
+        x, _ = T._blocks(cfg, x, params["blocks"], positions)
         x = T._norm(cfg, x, params, "final")
         return T._unembed(cfg, params, x[:, -1:, :])
     return prefill
@@ -165,7 +166,8 @@ def make_train_step(cfg: ModelConfig, optimizer):
 
 
 def _check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a model the port cannot train yet, naming the slice."""
+    """Raise for a model the port cannot train yet, naming the slice:
+    attention sub-layers with dense or MoE MLPs train."""
     T._check_supported(cfg)
     if any(spec.kind == "mamba" for spec in cfg.pattern):
         raise NotImplementedError(

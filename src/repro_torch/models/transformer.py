@@ -1,5 +1,5 @@
 """The patterned decoder of the LM-family architectures: attention and
-Mamba-1 sub-layers with dense MLPs or none.
+Mamba-1 sub-layers with dense MLPs, MoE MLPs or none.
 
 The port of the reference's ``repro.models.transformer``.  Parameters are
 the reference's nested dict with the same leaf names, shapes and dtypes:
@@ -11,12 +11,12 @@ reading its slice of the stacked leaves (a view, no copy).
 Remat: ``cfg.remat == "full"`` runs each block under
 ``torch.utils.checkpoint`` (its activations are recomputed in the
 backward, as ``jax.checkpoint`` does); the reference's gradient barrier is
-an XLA artifact and has no counterpart.
+an XLA artifact and has no counterpart.  The MoE aux loss is summed as
+the reference sums it: per block in pattern order, then over the blocks.
 
-Left out, each for its slice (``ROADMAP.md``): MoE MLPs, the
-encoder-decoder and its learned positions, the vision splice, the
-selective remat policy (``remat="dots"``), logical sharding axes and
-``abstract_params``.
+Left out, each for its slice (``ROADMAP.md``): the encoder-decoder and
+its learned positions, the vision splice, the selective remat policy
+(``remat="dots"``), logical sharding axes and ``abstract_params``.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from . import layers as L
 from .config import LayerSpec, ModelConfig
 from .mamba import mamba_block, mamba_decode, mamba_param_shapes
+from .moe import moe_block_sharded, moe_param_shapes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -78,8 +79,8 @@ def _norm_defs(cfg: ModelConfig, name: str) -> dict[str, ParamDef]:
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet, naming the slice that
-    brings it: attention and mamba sub-layers with dense MLPs (or none)
-    run."""
+    brings it: attention and mamba sub-layers with dense or MoE MLPs (or
+    none) run."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder comes with the encdec slice")
@@ -95,9 +96,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         if spec.kind not in ("attn", "mamba"):
             raise NotImplementedError(
                 f"{cfg.name}: unknown sub-layer kind {spec.kind!r}")
-        if spec.mlp == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE sub-layers come with the MoE slice")
 
 
 _MAMBA_FP32 = ("A_log", "D", "dt_bias", "conv_b")
@@ -109,6 +107,14 @@ def _mamba_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
                                 cfg.ssm_conv, cfg.dt_rank)
     return {k: ParamDef(shape, "zeros" if k in _MAMBA_ZEROS else "normal",
                         "float32" if k in _MAMBA_FP32 else "param")
+            for k, shape in shapes.items()}
+
+
+def _moe_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    shapes = moe_param_shapes(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                              cfg.gated_mlp)
+    return {k: ParamDef(shape, "normal",
+                        "float32" if k == "w_router" else "param")
             for k, shape in shapes.items()}
 
 
@@ -124,6 +130,9 @@ def _sub_defs(cfg: ModelConfig, spec: LayerSpec) -> dict[str, ParamDef]:
     if spec.mlp == "dense":
         defs.update(_norm_defs(cfg, "ln2"))
         defs.update(_mlp_defs(cfg))
+    elif spec.mlp == "moe":
+        defs.update(_norm_defs(cfg, "ln2"))
+        defs.update(_moe_defs(cfg))
     if cfg.post_norms and spec.mlp != "none":
         defs.update(_norm_defs(cfg, "post_ln2"))
     return defs
@@ -176,7 +185,11 @@ def unflatten(pairs) -> dict:
 
 
 def _materialize(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
-                 device: torch.device) -> torch.Tensor:
+                 device: torch.device, stacked: bool) -> torch.Tensor:
+    """One leaf.  A ``stacked`` leaf (leading ``n_blocks`` dim) is drawn
+    one layer slice at a time into its final-dtype tensor, so the fp32
+    draw never holds more than one layer (qwen3-moe-30b-a3b's whole
+    w_up stack is 38.7 GB in fp32)."""
     dtype = torch.float32 if d.dtype == "float32" else torch_dtype(cfg.dtype)
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
@@ -184,22 +197,32 @@ def _materialize(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
         return torch.ones(d.shape, dtype=dtype, device=device)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
-    w = torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return w.mul_(scale).to(dtype)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device).mul_(scale)
+    if not stacked:
+        return draw(d.shape).to(dtype)
+    out = torch.empty(d.shape, dtype=dtype, device=device)
+    for i in range(d.shape[0]):
+        out[i] = draw(d.shape[1:])
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda") -> dict:
     """Random weights at the config's widths, by the reference's rules:
     ``normal · 1/√fan_in`` (fan_in = the second-to-last dim), zeros and
-    ones for norms, fp32 norms and the rest in ``cfg.dtype``.  Drawn from
-    ``generator`` (on ``device``) leaf by leaf in sorted-path order; the
-    numbers differ from JAX's at the same seed, so a test that needs the
-    reference's weights converts them (``convert.params_from_jax``)."""
+    ones for norms, fp32 norms and routers and the rest in ``cfg.dtype``.
+    Drawn from ``generator`` (on ``device``) leaf by leaf in sorted-path
+    order, a block leaf layer by layer; the numbers differ from JAX's at
+    the same seed, so a test that needs the reference's weights converts
+    them (``convert.params_from_jax``)."""
     dev = torch.device(device)
-    return unflatten((path, _materialize(d, cfg, generator, dev))
-                     for path, d in flatten(param_defs(cfg)))
+    return unflatten(
+        (path, _materialize(d, cfg, generator, dev,
+                            stacked=path.startswith("blocks/")))
+        for path, d in flatten(param_defs(cfg)))
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +243,10 @@ def _variant(cfg: ModelConfig, spec: LayerSpec,
 
 def _apply_sub(cfg: ModelConfig, spec: LayerSpec, x, p, positions,
                causal: bool = True):
-    """One sub-layer (token mixer: attention or mamba; then the MLP, if
-    any) with residuals."""
+    """One sub-layer (token mixer: attention or mamba; then the MLP, dense
+    or MoE, if any) with residuals.  Returns (x, aux): the MoE aux loss, 0
+    without MoE."""
+    aux = torch.zeros((), device=x.device)
     h = _norm(cfg, x, p, "ln1")
     if spec.kind == "attn":
         h = L.attention_block(h, p, positions, _variant(cfg, spec, causal),
@@ -235,11 +260,14 @@ def _apply_sub(cfg: ModelConfig, spec: LayerSpec, x, p, positions,
     x = x + h
     if spec.mlp != "none":
         h = _norm(cfg, x, p, "ln2")
-        h = L.mlp_block(h, p, cfg.mlp_act)
+        if spec.mlp == "moe":
+            h, aux = moe_block_sharded(h, p, cfg)
+        else:
+            h = L.mlp_block(h, p, cfg.mlp_act)
         if cfg.post_norms:
             h = _norm(cfg, h, p, "post_ln2")
         x = x + h
-    return x
+    return x, aux
 
 
 def _layer(block: dict, i: int) -> dict:
@@ -248,11 +276,14 @@ def _layer(block: dict, i: int) -> dict:
 
 
 def _block_fn(cfg: ModelConfig, positions):
-    """Block i: all sub-layers of the pattern, each with its parameters."""
+    """Block i: all sub-layers of the pattern, each with its parameters.
+    Returns (x, the block's aux summed in pattern order)."""
     def fn(x, *subs):
+        total = None
         for spec, p in zip(cfg.pattern, subs):
-            x = _apply_sub(cfg, spec, x, p, positions)
-        return x
+            x, aux = _apply_sub(cfg, spec, x, p, positions)
+            total = aux if total is None else total + aux
+        return x, total
     return fn
 
 
@@ -261,19 +292,22 @@ def _blocks(cfg: ModelConfig, x, blocks: dict, positions):
     slices once (views), so a backward gathers each leaf's gradient with
     one stack, not a zero-filled full-size tensor per layer.  Where a
     gradient is wanted and ``cfg.remat == "full"``, each block runs under
-    ``torch.utils.checkpoint``."""
+    ``torch.utils.checkpoint``.  Returns (x, aux summed over the
+    blocks)."""
     fn = _block_fn(cfg, positions)
     layers = [{k: v.unbind(0) for k, v in blocks[f"sub{j}"].items()}
               for j in range(len(cfg.pattern))]
     remat = torch.is_grad_enabled() and _remat(cfg)
+    auxs = []
     for i in range(cfg.n_blocks):
         subs = [{k: v[i] for k, v in sub.items()} for sub in layers]
         if remat:
-            x = checkpoint(fn, x, *subs, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(fn, x, *subs, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = fn(x, *subs)
-    return x
+            x, aux = fn(x, *subs)
+        auxs.append(aux)
+    return x, torch.stack(auxs).sum()
 
 
 def _remat(cfg: ModelConfig) -> bool:
@@ -293,9 +327,8 @@ def forward_lm_hidden(cfg: ModelConfig, params, batch: dict
     Returns (hidden (B,S,D), aux scalar)."""
     x = embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _blocks(cfg, x, params["blocks"], positions)
-    return (_norm(cfg, x, params, "final"),
-            torch.zeros((), device=x.device))
+    x, aux = _blocks(cfg, x, params["blocks"], positions)
+    return _norm(cfg, x, params, "final"), aux
 
 
 def embed_inputs(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
@@ -311,7 +344,7 @@ def _unembed(cfg: ModelConfig, params, x) -> torch.Tensor:
 def forward_lm(cfg: ModelConfig, params, tokens: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B,S,V) fp32, aux scalar).  The aux loss is
-    the MoE router's; a dense model's is 0."""
+    the MoE routers'; a model without MoE has 0."""
     x, aux = forward_lm_hidden(cfg, params, {"tokens": tokens})
     return _unembed(cfg, params, x), aux
 
@@ -384,7 +417,10 @@ def _decode_sub(cfg: ModelConfig, spec: LayerSpec, x, p, cache: dict,
     x = x + h
     if spec.mlp != "none":
         h = _norm(cfg, x, p, "ln2")
-        h = L.mlp_block(h, p, cfg.mlp_act)
+        if spec.mlp == "moe":   # the decode step drops the aux loss
+            h, _ = moe_block_sharded(h, p, cfg)
+        else:
+            h = L.mlp_block(h, p, cfg.mlp_act)
         if cfg.post_norms:
             h = _norm(cfg, h, p, "post_ln2")
         x = x + h

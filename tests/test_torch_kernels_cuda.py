@@ -462,7 +462,7 @@ def test_serve_forward_launches_flash_once_per_layer(cuda):
                          for impl in ("flash", "ref"))
             torch.testing.assert_close(
                 got, want, atol=2e-2 * float(want.abs().max()), rtol=0)
-            x = T._apply_sub(cfg, spec, x, p, pos)
+            x, _ = T._apply_sub(cfg, spec, x, p, pos)
 
 
 def test_serve_engine_forward_matches_decode_replay(cuda):
@@ -485,6 +485,90 @@ def test_serve_engine_forward_matches_decode_replay(cuda):
         scale = float(w.prefill_logits.abs().max())
         torch.testing.assert_close(w.replay_logits, w.prefill_logits,
                                    atol=1e-4 * scale, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_block_matches_onehot_on_the_card(cuda, dtype):
+    """qwen3's router (128 experts, top-8) at narrow widths on a padded
+    wave's 768 tokens: the sort+gather ``moe_block`` drops the pairs the
+    one-hot formulation drops and matches it (within 1e-5 of max|output|
+    in fp32, 2e-2 in bf16), with the same aux loss."""
+    from repro_torch.models import moe as M
+
+    g = torch.Generator(cuda).manual_seed(5)
+    tdt = getattr(torch, dtype)
+    E, D, F, k = 128, 256, 64, 8
+    x = torch.randn(8, 96, D, generator=g, device=cuda)
+    x[:, 40:] = x[:, 40:41]          # padding: one repeated token per row
+    p = {"w_router": torch.randn(D, E, generator=g, device=cuda),
+         "w_gate": torch.randn(E, D, F, generator=g, device=cuda) / 16,
+         "w_up": torch.randn(E, D, F, generator=g, device=cuda) / 16,
+         "w_down": torch.randn(E, F, D, generator=g, device=cuda) / 8}
+    x = x.to(tdt)
+    p = {n: (t if n == "w_router" else t.to(tdt)) for n, t in p.items()}
+    got, aux = M.moe_block(x, p, k)
+    want, aux1 = M.moe_block_onehot(x, p, k)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * float(want.float().abs().max()))
+    torch.testing.assert_close(aux, aux1, rtol=1e-6, atol=0)
+    xt = x.reshape(-1, D)
+    gates, idx = M.router_probs(xt, p["w_router"], k)
+    cap = M.capacity(xt.shape[0], E, k, 1.25)
+    _, (_, _, in_cap) = M._local_route(xt, gates, idx, E, cap)
+    onehot = torch.nn.functional.one_hot(idx, E).reshape(-1, E)
+    pos = ((onehot.cumsum(0) - onehot) * onehot).sum(-1)
+    assert torch.equal(in_cap, pos < cap)
+    assert int((~in_cap).sum()) > 0     # the padding overflows capacity
+
+
+def test_moe_serve_engine_forward_matches_decode_replay(cuda):
+    """Reduced qwen3-moe in fp32 on the card, through the launcher's code
+    path, at a capacity factor that drops no pair in the forward or in
+    decode: one flash launch per layer per wave, and each wave's forward
+    logits equal the decode replay's (so with no drop, MoE serving is as
+    exact as the dense model's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+
+    cfg = get_config("qwen3-moe-30b-a3b").reduced().with_(
+        attn_impl="flash", dtype="float32", capacity_factor=4.0)
+    before = fa.launches.value
+    eng, done = launch.serve(cfg, 16, 2, "max-compute-util", 4, 0, cuda)
+    torch.cuda.synchronize()
+    assert fa.launches.value - before == cfg.n_layers * len(eng.waves) == 4
+    assert all(len(r.output) == 4 for r in done)
+    for w in eng.waves:
+        scale = float(w.prefill_logits.abs().max())
+        torch.testing.assert_close(w.replay_logits, w.prefill_logits,
+                                   atol=1e-4 * scale, rtol=1e-4)
+
+
+def test_hybrid_forward_matches_plain_on_the_card(cuda):
+    """Reduced jamba in fp32 (attention, Mamba, dense and MoE sub-layers):
+    the forward with the flash and scan kernels launches each once per
+    layer of its kind and gives the plain path's logits (ref attention,
+    chunked scan) within 1e-3 of max|logit|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_forward
+
+    cfg = get_config("jamba-1.5-large-398b").reduced().with_(
+        attn_impl="flash", use_mamba_kernel=True, dtype="float32")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(1), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (4, 40), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(2))
+    fa0, ms0 = fa.launches.value, ms.launches.value
+    with torch.inference_mode():
+        got, aux = make_forward(cfg)(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        n_fa, n_ms = fa.launches.value - fa0, ms.launches.value - ms0
+        want, aux1 = make_forward(cfg.with_(
+            attn_impl="ref", use_mamba_kernel=False))(params, {"tokens": toks})
+    assert (n_fa, n_ms) == (2, 14)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * float(want.abs().max()))
+    assert float(aux) > 0 and abs(float(aux) - float(aux1)) <= 1e-3 * float(
+        aux1)
 
 
 # --------------------------- selective scan ----------------------------------

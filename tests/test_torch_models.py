@@ -3,9 +3,11 @@
 Layer by layer in fp32 and bf16, then the whole forward (attention impl
 flash, blocked and ref; the Mamba scan through the kernel's op or the
 plain chunked path) and the one-token decode on the ``reduced()`` form of
-the four dense configs and falcon-mamba-7b, with the reference's own
-``init_params`` weights carried over by ``convert.params_from_jax``.  JAX
-runs as its own tests run it: the Pallas kernels in interpret mode.
+the four dense configs, falcon-mamba-7b and the MoE configs (qwen3-moe,
+mixtral and the hybrid jamba, whose pattern mixes attention, Mamba, dense
+and MoE sub-layers), with the reference's own ``init_params`` weights
+carried over by ``convert.params_from_jax``.  JAX runs as its own tests
+run it: the Pallas kernels in interpret mode.
 
 Tolerances: fp32 atol = rtol = 1e-4 (the reference's own flash-vs-ref gap
 is about 2e-5 at these sizes: its wrapper pads head_dim and rescales q);
@@ -41,6 +43,7 @@ from repro_torch.models.transformer import flatten
 
 DENSE = sorted(k for k, c in REGISTRY.items() if c.family == "dense")
 SSM = "falcon-mamba-7b"
+MOE = sorted(k for k, c in REGISTRY.items() if c.family in ("moe", "hybrid"))
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -322,7 +325,7 @@ def _jax_params(cfg, seed=0):
                         jax_init_params(cfg, jax.random.PRNGKey(seed)))
 
 
-@pytest.mark.parametrize("arch", DENSE + [SSM])
+@pytest.mark.parametrize("arch", DENSE + [SSM] + MOE)
 def test_param_tree_matches_the_reference(arch):
     """Same leaf paths, shapes and dtypes; the port's own draw has the
     reference's init rules (normal·1/√fan_in, zeros, ones)."""
@@ -345,7 +348,7 @@ def test_param_tree_matches_the_reference(arch):
             assert abs(std * np.sqrt(fan_in) - 1) < 0.1, (path, std)
 
 
-@pytest.mark.parametrize("arch", DENSE + [SSM])
+@pytest.mark.parametrize("arch", DENSE + [SSM] + MOE)
 def test_param_defs_match_abstract_params_at_full_size(arch):
     """At the published widths, with nothing allocated: the reference's
     ``abstract_params`` leaf for leaf (names, shapes, dtypes)."""
@@ -441,7 +444,7 @@ def test_ssm_forward_matches_jax_fp32(use_mamba_kernel):
     _close(got_last, want_last, "float32")
 
 
-@pytest.mark.parametrize("arch", DENSE + [SSM])
+@pytest.mark.parametrize("arch", DENSE + [SSM] + MOE)
 def test_decode_step_matches_jax_fp32(arch):
     """Twelve decode steps into a 12-token cache (SWA configs keep a ring
     of 8 slots, so it wraps); logits and caches (k and v, or the conv
@@ -517,8 +520,9 @@ def _forward_bf16_sublayer_by_sublayer(arch, impl, use_mamba_kernel=False):
             jy, _ = jax.jit(lambda x, p, spec=spec: JT._apply_sub(
                 jcfg, spec, x, p, jpos, None))(jx, jp)
             with torch.inference_mode():
-                y = T._apply_sub(cfg, spec, _to_port(jx),
-                                 T._layer(params["blocks"][f"sub{j}"], i), pos)
+                y, _ = T._apply_sub(cfg, spec, _to_port(jx),
+                                    T._layer(params["blocks"][f"sub{j}"], i),
+                                    pos)
             _close_rel(y, jy, f"block {i} sub {j}")
             jx = jy
     jh = JT._norm(jcfg, jx, jparams, "final")
@@ -622,14 +626,31 @@ def test_decode_replay_matches_forward(arch):
                                   "qwen3-moe-30b-a3b", "llava-next-mistral-7b"])
 def test_other_families_name_their_slice(arch):
     """The reference's other families, built field for field in the port's
-    schema, are refused with the slice that brings them."""
+    schema: the encoder-decoder and the vision model are refused with the
+    slice that brings them.  The MoE families (qwen3-moe, and jamba's
+    hybrid), which the port now runs, give the reference's fp32 logits and
+    aux within 1e-4 on the reference's weights."""
     jcfg = jax_get_config(arch).reduced()
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(jcfg)}
     fields["pattern"] = tuple(LayerSpec(**dataclasses.asdict(s))
                               for s in jcfg.pattern)
     cfg = ModelConfig(**fields)
-    with pytest.raises(NotImplementedError, match="slice"):
-        param_defs(cfg)
-    with pytest.raises(NotImplementedError, match="slice"):
-        make_forward(cfg)
+    if jcfg.family not in ("moe", "hybrid"):
+        with pytest.raises(NotImplementedError, match="slice"):
+            param_defs(cfg)
+        with pytest.raises(NotImplementedError, match="slice"):
+            make_forward(cfg)
+        return
+    assert cfg == get_config(arch).reduced()
+    jcfg, cfg = jcfg.with_(dtype="float32"), cfg.with_(dtype="float32")
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(2))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                             device="cpu")
+    toks = _rng(17).integers(0, 256, (2, 12))
+    want, jaux = jax.jit(jax_make_forward(jcfg))(
+        jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
+    with torch.inference_mode():
+        got, aux = make_forward(cfg)(params, {"tokens": torch.from_numpy(toks)})
+    _close(got, want, "float32")
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-4)

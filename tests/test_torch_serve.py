@@ -1,8 +1,9 @@
 """The port's serving layer against the JAX reference, on the CPU: the
 prefix-page oids and the router (copies, which must decide exactly as the
-reference's), the engine on TINY and on reduced falcon-mamba-7b with the
-reference's weights (exactly the reference engine's tokens and router
-state), and the launcher's traffic."""
+reference's), the engine on TINY and on reduced falcon-mamba-7b,
+qwen3-moe and jamba with the reference's weights (exactly the reference
+engine's tokens and router state), the launcher's traffic and the
+``serve_lm`` app."""
 import contextlib
 import io
 
@@ -169,13 +170,26 @@ def _waves(seed=1):
              for _ in range(4)] for _ in range(2)]
 
 
-@pytest.mark.parametrize("impl", ["blocked", "flash", "ref"])
-def test_engine_serves_exactly_as_the_reference(impl):
+@pytest.mark.parametrize("impl,arch", [
+    ("blocked", None), ("flash", None), ("ref", None),
+    ("flash", "qwen3-moe-30b-a3b"), ("flash", "jamba-1.5-large-398b")],
+    ids=["blocked", "flash", "ref", "qwen3-moe-30b-a3b",
+         "jamba-1.5-large-398b"])
+def test_engine_serves_exactly_as_the_reference(impl, arch):
     """Two waves of four requests sharing a 32-token base: the same output
     tokens, prefill and reused token counts, and router state.  The
     reference engine runs blocked attention (its default); the port's
-    forward runs ``impl``."""
-    _serve_both(*_engines(impl))
+    forward runs ``impl``.  On TINY, and on reduced qwen3-moe and jamba in
+    fp32 (their MoE layers drop pairs in the padded forward and, with 4
+    experts, in decode too: both packages alike), with the port's scan
+    op."""
+    if arch is None:
+        _serve_both(*_engines(impl))
+        return
+    jcfg = jax_get_config(arch).reduced().with_(dtype="float32")
+    cfg = get_config(arch).reduced().with_(dtype="float32",
+                                          use_mamba_kernel=True)
+    _serve_both(*_engines(impl, jcfg=jcfg, cfg=cfg))
 
 
 @pytest.mark.parametrize("use_mamba_kernel", [True, False])
@@ -283,6 +297,55 @@ def test_launcher_prints_the_reference_lines_ssm():
     assert len(lines) == 4 and lines[3].startswith("[serve] on cpu")
     assert "selective scan plain in the forward" in lines[3]
     assert "attention" not in lines[3]
+
+
+def test_launcher_prints_the_reference_lines_moe():
+    """The same on reduced qwen3-moe; the times line names the MoE layers'
+    experts and top-k."""
+    argv = ["--arch", "qwen3-moe-30b-a3b", "--reduced", "--requests", "8",
+            "--max-new", "2"]
+    jout = io.StringIO()
+    with contextlib.redirect_stdout(jout):
+        assert jax_launch.main(argv) == 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert launch.main(argv + ["--device", "cpu"]) == 0
+    lines = out.getvalue().splitlines()
+    assert lines[:3] == jout.getvalue().splitlines()
+    assert len(lines) == 4 and lines[3].startswith("[serve] on cpu")
+    assert "attention flash, MoE 4 experts top-2 in the forward" in lines[3]
+
+
+def test_serve_lm_app_prints_the_reference_lines():
+    """``apps.serve_lm`` against ``examples/serve_lm.py`` with the same
+    flags: every line but ``sample output:`` (each package draws its own
+    weights) is the reference's."""
+    import dataclasses
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.apps import serve_lm
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "serve_lm.py"
+    spec = importlib.util.spec_from_file_location("_ref_serve_lm", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    assert dataclasses.asdict(serve_lm.TINY) == \
+        dataclasses.asdict(example.TINY)
+    argv = ["--requests", "16", "--replicas", "3", "--max-new", "2"]
+    jout = io.StringIO()
+    with contextlib.redirect_stdout(jout):
+        assert example.main(argv) == 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert serve_lm.main(argv + ["--device", "cpu"]) == 0
+    jlines, lines = jout.getvalue().splitlines(), out.getvalue().splitlines()
+    assert len(lines) == len(jlines) == 6
+    assert lines[:5] == jlines[:5]
+    assert lines[0] == ("served 16 requests x 2 tokens on 3 replicas, "
+                        "policy=max-compute-util")
+    assert lines[5].startswith("  sample output: [")
+    assert len(eval(lines[5].split(": ", 1)[1])) == 2
 
 
 def test_launcher_with_zero_requests_prints_the_reference_lines():

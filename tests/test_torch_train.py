@@ -1,9 +1,10 @@
 """The port's training path against the JAX reference, on the CPU: the
 schedule and the optimizer (one AdamW or factored step on the same seeded
-params and grads), the loss and the train step, the first losses of the
-reference's TINY model trained through the diffusion pipeline from the
-reference's weights, the flash op's gradients, checkpoints that each
-package restores from the other, and the launchers."""
+params and grads), the loss and the train step (dense and MoE), the first
+losses of the reference's TINY model and of the ``moe-30m`` preset trained
+through the diffusion pipeline from the reference's weights, the flash
+op's gradients, checkpoints that each package restores from the other,
+and the launchers."""
 import contextlib
 import io
 import json
@@ -23,6 +24,7 @@ from repro.launch import train as jax_launch
 from repro.models import init_params as jax_init_params
 from repro.models import make_loss_fn as jax_make_loss_fn
 from repro.models import make_train_step as jax_make_train_step
+from repro.models.config import LayerSpec as JLayerSpec
 from repro.models.config import ModelConfig as JModelConfig
 from repro.models.model import lm_loss as jax_lm_loss
 from repro.train import CheckpointManager as JCheckpointManager
@@ -41,7 +43,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.mamba_scan import mamba_scan as ms
 from repro_torch.launch import train as launch
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.model import lm_loss, make_loss_fn, make_train_step
 from repro_torch.models.transformer import flatten
 from repro_torch.train import (CheckpointManager, Optimizer, TrainState,
@@ -54,6 +56,9 @@ TINY_FIELDS = dict(name="tiny", family="dense", n_layers=2, d_model=32,
                    head_dim=8)
 TINY = ModelConfig(**TINY_FIELDS)
 JTINY = JModelConfig(**TINY_FIELDS)
+#: TINY with an MoE MLP of 4 experts, top-2, in every layer
+MOE_FIELDS = dict(TINY_FIELDS, name="tiny-moe", family="moe", n_experts=4,
+                  top_k=2)
 RTOL = 1e-6   # one optimizer step: fp32 rounding
 
 
@@ -171,9 +176,13 @@ def test_optimizer_updates_bf16_params_as_the_reference():
 
 # --------------------------- loss and train step ------------------------------
 
-def _tiny_weights(cfg_fields, seed=0, dtype="float32"):
-    jcfg = JModelConfig(**cfg_fields).with_(dtype=dtype)
-    cfg = ModelConfig(**cfg_fields).with_(dtype=dtype)
+def _tiny_weights(cfg_fields, seed=0, dtype="float32", moe=False):
+    """Both packages' configs from ``cfg_fields`` (with ``moe``, an MoE MLP
+    in every layer), and the reference's weights in each."""
+    jkw, kw = (({"pattern": (JLayerSpec(mlp="moe"),)},
+                {"pattern": (LayerSpec(mlp="moe"),)}) if moe else ({}, {}))
+    jcfg = JModelConfig(**cfg_fields, **jkw).with_(dtype=dtype)
+    cfg = ModelConfig(**cfg_fields, **kw).with_(dtype=dtype)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(seed))
     return cfg, jcfg, jparams, params_from_jax(cfg, _np(jparams),
                                                device="cpu")
@@ -240,6 +249,31 @@ def test_train_step_matches_reference(impl, remat):
                label=path)
 
 
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_moe_train_step_matches_reference(remat):
+    """One train step of TINY with an MoE MLP (4 experts, top-2) in every
+    layer, in fp32 from the reference's weights (its remat full): the loss
+    (with the routers' aux loss) and the grad norm within 1e-5 relative,
+    every gradient, read from m, within 1e-4 of its leaf's max|m|; the
+    routers' gradients are not zero."""
+    cfg, jcfg, jparams, params = _tiny_weights(MOE_FIELDS, moe=True)
+    cfg = cfg.with_(attn_impl="flash", remat=remat)
+    tokens = _tokens(4, 33, cfg.vocab_size, seed=3)
+    opt, jopt = adamw(1e-2, 1, 10), jax_adamw(1e-2, 1, 10)
+    jstate, jm = jax_make_train_step(jcfg, jopt)(
+        jopt.init(jparams), {"tokens": jnp.asarray(tokens)})
+    state, m = make_train_step(cfg, opt)(
+        opt.init(params), {"tokens": torch.from_numpy(tokens)})
+    _close(m["loss"], jm["loss"], rtol=1e-5)
+    _close(m["grad_norm"], jm["grad_norm"], rtol=1e-5)
+    for (path, got), (_, want) in zip(flatten(state.m),
+                                      flatten(_np(jstate.m))):
+        _close(got, want, rtol=0, atol=1e-4 * float(np.abs(want).max()),
+               label=path)
+    router = state.m["blocks"]["sub0"]["w_router"]
+    assert all(float(r.abs().max()) > 0 for r in router)
+
+
 def test_remat_recomputes_each_block_in_the_backward(monkeypatch):
     """remat full runs each block's forward twice per step (the forward,
     then the recompute in the backward); remat none once."""
@@ -266,9 +300,10 @@ def test_remat_dots_and_mamba_training_name_their_slices():
     tokens = torch.from_numpy(_tokens(2, 9, cfg.vocab_size))
     with pytest.raises(NotImplementedError, match="selective-remat slice"):
         make_loss_fn(cfg.with_(remat="dots"))(params, {"tokens": tokens})
-    ssm = get_config("falcon-mamba-7b").reduced()
-    with pytest.raises(NotImplementedError, match="Mamba training slice"):
-        make_train_step(ssm, adamw())
+    for arch in ("falcon-mamba-7b", "jamba-1.5-large-398b"):
+        ssm = get_config(arch).reduced()
+        with pytest.raises(NotImplementedError, match="Mamba training slice"):
+            make_train_step(ssm, adamw())
 
 
 # --------------------------- flash gradients ---------------------------------
@@ -316,10 +351,11 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad():
 
 # --------------------------- training through the pipeline -------------------
 
-def _pipelines(seed=0):
+def _pipelines(seed=0, vocab_size=256):
     kw = dict(global_batch=4, seq_len=32, n_hosts=3, host_cache_bytes=1 << 24,
               seed=seed)
-    spec = dict(n_shards=4, tokens_per_shard=4096, vocab_size=256, seed=seed)
+    spec = dict(n_shards=4, tokens_per_shard=4096, vocab_size=vocab_size,
+                seed=seed)
     return (JPipeline(JPipelineConfig(policy=JDispatchPolicy.MAX_COMPUTE_UTIL,
                                       **kw), JShardSpec(**spec)),
             DiffusionDataPipeline(
@@ -356,6 +392,64 @@ def test_first_loss_matches_reference_bf16():
     2e-2 relative (observed: 7.2e-5)."""
     got, ref = _train_both("bfloat16", 1)
     np.testing.assert_allclose(got.losses[0], ref.losses[0], rtol=2e-2)
+
+
+def _example(name: str):
+    """``examples/<name>`` imported as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / name
+    spec = importlib.util.spec_from_file_location(f"_ref_{path.stem}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_moe_30m_preset_first_losses_match_reference_fp32():
+    """The app's ``moe-30m`` preset, which is ``examples/train_lm.py``'s, in
+    fp32 from the reference's weights, with the example's optimizer, both
+    trained through their pipelines (the same batches, 4 x 32 tokens of its
+    vocabulary).  The port runs its flash attention (on the CPU the plain
+    attention, whose autograd is its backward on the card too): its first
+    5 losses agree at rtol 1e-4 with the reference's on the same
+    arithmetic, its plain ``ref`` attention (observed: at most 4.5e-5).
+    Against the example's default ``blocked`` attention they sit within
+    twice the reference's own blocked-vs-ref gap: at this preset's random
+    init the first AdamW steps amplify rounding, and that gap passes 1e-4
+    by step 4 (observed: 5.5e-4)."""
+    import dataclasses
+
+    from repro_torch.apps import train_lm
+
+    example = _example("train_lm.py")
+    assert dataclasses.asdict(train_lm.PRESETS["moe-30m"]) == \
+        dataclasses.asdict(example.PRESETS["moe-30m"])
+    jcfg = example.PRESETS["moe-30m"].with_(dtype="float32")
+    cfg = train_lm.PRESETS["moe-30m"].with_(dtype="float32")
+    params = params_from_jax(
+        cfg, _np(jax_init_params(jcfg, jax.random.PRNGKey(0))), device="cpu")
+    ref, got = {}, None
+    for impl in ("ref", "blocked"):
+        jpipe, pipe = _pipelines(vocab_size=cfg.vocab_size)
+        try:
+            ref[impl] = jax_train(jcfg.with_(attn_impl=impl), jpipe, 5,
+                                  seed=0, log=lambda s: None,
+                                  optimizer=jax_adamw(3e-4, warmup=20,
+                                                      total=5)).losses
+            if got is None:
+                got = train(cfg.with_(attn_impl="flash"), pipe, 5, seed=0,
+                            log=lambda s: None, params=params, device="cpu",
+                            optimizer=adamw(3e-4, warmup=20, total=5))
+        finally:
+            jpipe.close()
+            pipe.close()
+    assert got.steps_run == 5
+    np.testing.assert_allclose(got.losses, ref["ref"], rtol=1e-4)
+    blocked = np.asarray(ref["blocked"])
+    self_gap = np.abs(np.asarray(ref["ref"]) - blocked).max() / blocked.max()
+    gap = np.abs(np.asarray(got.losses) - blocked).max() / blocked.max()
+    assert gap <= 2 * self_gap, (gap, self_gap)
 
 
 def test_train_loss_decreases_and_ledger_populated():
@@ -562,6 +656,13 @@ def test_train_lm_app_runs_and_resumes(tmp_path):
         assert lines[0].startswith("training lm-10m: ")
         assert f"resumed from checkpoint: {resumed}" in lines
     assert train_lm.DEFAULT_CKPT_DIR.parts[-2:] == ("build", "train_lm_ckpt")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        train_lm.main(["--preset", "moe-30m", "--device", "cpu", "--steps",
-                       "1", "--ckpt-dir", str(tmp_path / "moe")])
+    # the moe-30m preset trains too
+    argv[-1] = str(tmp_path / "moe")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert train_lm.main(argv + ["--preset", "moe-30m", "--steps",
+                                     "2"]) == 0
+    lines = out.getvalue().splitlines()
+    assert lines[0].startswith("training lm-moe-30m: ")
+    assert "resumed from checkpoint: None" in lines
+    assert any(line.startswith("final loss: ") for line in lines)
