@@ -81,10 +81,28 @@ Phases, each reported on its own lines:
      weights.  Then one wave of
      reduced jamba-1.5-large (attention, Mamba, dense and MoE sub-layers)
      through the flash and scan kernels, whose fp32 logits must be within
-     2e-2 of max|logit| of the plain path's, and the train_lm app's
+     2e-2 of max|logit| of the plain path's; the same reduced jamba
+     trained 6 steps (8 x 128 tokens) through flash, the scan and the MoE
+     layer (each kernel 2 x its layers a step, the loss falling by phase
+     7's rule, and in fp32 every gradient leaf of the kernel route within
+     2e-2 of its max|g| of the plain route's); and the train_lm app's
      ``moe-30m`` preset trained 6 steps through its pipeline and optimizer:
      the loss must fall by phase 7's rule, the aux loss be finite and
-     positive and every layer's router gradient finite and non-zero.
+     positive and every layer's router gradient finite and non-zero;
+  9. training falcon-mamba-7b at its published widths (d_model 4096,
+     d_inner 8192, vocab 65,024) through the launcher's code path with the
+     selective-scan kernel in every Mamba forward, at phase 7's traffic,
+     its depth cut to 32 of 64 layers (the phase reckons each depth's
+     state: all 64 need 87 GB).  The kernel must launch 2 x 32 x 6 times,
+     all on one lane layout; the loss must fall by phase 7's rule; every
+     Mamba leaf of every layer must get a finite, non-zero gradient; 2
+     layers at full width in fp32 hold the kernel route's loss (1e-4
+     relative) and gradients (2e-2 of max|g|) to the plain chunked
+     scan's.  One more step runs under torch.profiler (the card's busy
+     share, its time split into the scan kernel, the plain backward scan,
+     the products and the rest), two under remat dots (ms per step, peak
+     memory beside remat full's), and the products one forward dispatches
+     on the card are listed with what remat dots does with each.
 
 Phase 2 runs the stacking kernel at the reference's test shapes and the
 main path's (N=8 and N=32 at 100x100), each beside the launch floor (the
@@ -103,9 +121,11 @@ cost of each layer of an eager call at the serving shape, and
 ``scaled_dot_product_attention`` timed beside it as a yardstick only (with
 the mask, and with ``is_causal`` where the window does not bind); and
 the selective-scan kernel at the reference's four test cases, a chained
-pair of halves, the serving forward's shape and a long prefill, each with
-the path the shape rule gave it (``kernel_path``) and its share of the
-bound, and at the two main shapes the other path's time beside it.
+pair of halves, the serving forward's shape, a long prefill and the
+training forward's shape (4 x 2048), each with the path the shape rule
+gave it (``kernel_path``) and its share of the bound, at the main shapes
+the other path's time beside it, and the training op's backward (the
+plain chunked scan) at one layer of the training shape.
 fp32 products on the card run in full fp32: TF32 is switched off for
 matmuls and cuDNN before anything runs.
 
@@ -173,6 +193,11 @@ MOE_ARCH, HYBRID_ARCH = "qwen3-moe-30b-a3b", "jamba-1.5-large-398b"
 MOE_FP32_DEPTHS = (2, 8, 48)
 MOE_TRAIN_PRESET, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = "moe-30m", 8, 128
 MOE_TRAIN_HOSTS, MOE_TRAIN_SHARDS = 4, 12
+#: phase 9: falcon-mamba-7b trained at full width at phase 7's traffic, its
+#: 64 layers cut to this many (the phase reckons the state of each depth:
+#: 64 layers need 87 GB, more than the card); then SSM_DOTS_STEPS more
+#: steps under remat dots
+SSM_TRAIN_LAYERS, SSM_DOTS_STEPS = 32, 2
 #: flash cases: (label, B, S, H, KV, D, causal, window, softcap, dtype[,
 #: offset]): the reference's eight (tests/test_kernels.py), cases beyond
 #: them, then the shapes the serving and training paths give the kernel at
@@ -223,8 +248,9 @@ FLASH_MAIN = ("main/serve", "main/prefill", "main/train",
 FLASH_PLAIN_Q_CHUNK = 1024
 #: selective-scan cases: (label, B, S, I, N, h0); the reference's four
 #: (tests/test_kernels.py, with its h0 = 0.05), then the shapes the serving
-#: forward gives the kernel at falcon-mamba-7b's widths (no h0): the
-#: launcher's waves (B=8, S=96) and one 4096-token prefill
+#: and training forwards give the kernel at falcon-mamba-7b's widths (no
+#: h0): the launcher's waves (B=8, S=96), one 4096-token prefill and the
+#: training batch of phase 9 (4 x 2048)
 MAMBA_CASES = [
     ("test", 1, 32, 16, 4, True),
     ("test", 2, 96, 48, 8, True),
@@ -232,6 +258,7 @@ MAMBA_CASES = [
     ("test ragged", 1, 50, 24, 4, True),
     ("main/serve", 8, 96, 8192, 16, False),
     ("main/prefill", 1, 4096, 8192, 16, False),
+    ("main/train", 4, 2048, 8192, 16, False),
 ]
 #: falcon-mamba-7b's dt_rank: Bm and Cm are column slices of a projection
 #: (B, S, DT_RANK + 2N) on the main path
@@ -754,6 +781,52 @@ def _scan_path_ms(path: str, arrs: dict, want, label: str,
         ms.kernel_path = rule
 
 
+def _scan_backward(arrs: dict, reps: int = 3) -> dict:
+    """The training op's backward at one layer of the training shape: the
+    plain chunked scan's VJP (``mamba_scan_with_ref_vjp``, in chunks of
+    falcon-mamba-7b's ``ssm_chunk``), host wall per backward (median of
+    ``reps`` after one warm-up, each ending in a synchronise), then one
+    more under torch.profiler for its kernels and card time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+
+    chunk = get_config(SSM_ARCH).ssm_chunk
+    ins = {k: v.detach().clone().requires_grad_() for k, v in arrs.items()}
+    gy = torch.randn_like(ins["u"])
+    y, _ = ms_ops.mamba_scan_with_ref_vjp(**ins, chunk=chunk)
+
+    def backward():
+        torch.autograd.grad(y, list(ins.values()), gy, retain_graph=True)
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        backward()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    b, s, i = arrs["u"].shape
+    row = {"case": "main/train backward (plain chunked scan)",
+           "shape": [b, s, i, arrs["A"].shape[1]], "chunk": chunk,
+           "host_ms": statistics.median(times[1:]) * 1e3,
+           "host_ms_all": [t * 1e3 for t in times],
+           "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+           "kernels": sum(e.count for e in kernels)}
+    log(f"[kernel] mamba_scan main/train backward B={b} S={s} I={i} N="
+        f"{row['shape'][3]}, the plain chunked scan in chunks of {chunk} "
+        f"(one layer): {row['host_ms']:.1f} ms a backward "
+        f"(host wall, median of {reps}), card busy {row['device_ms']:.1f} "
+        f"ms over {row['kernels']} kernels (profiled)")
+    return row
+
+
 def phase_mamba_kernel() -> list[dict]:
     """The selective-scan kernel against its plain version on the card (no
     single PyTorch call computes a selective scan: no library yardstick)."""
@@ -805,6 +878,8 @@ def phase_mamba_kernel() -> list[dict]:
             f"({row['bound_share']:.3f} of the bound){other}, plain "
             f"{p_ms * 1e3:.3f} us, bound {bound_ms * 1e3:.3f} us "
             f"({bound_by}) | eager per call: kernel {k_host * 1e3:.2f} us")
+    rows.append(_scan_backward(_scan_inputs(4, 2048, 8192, 16, False, 398,
+                                            dev)))
     # state chaining (tests/test_kernels.py): two halves, h_last carried
     # over as h0, give the whole
     arrs = _scan_inputs(1, 64, 16, 8, False, 399, dev)
@@ -1553,13 +1628,12 @@ def _loss_fell(cfg, params, pipeline, steps: int, seed: int, dev) -> dict:
             "fell": bool(np.isfinite(after) and after < before)}
 
 
-def _attention_grads(cfg, params, tokens) -> list[dict]:
-    """The loss's gradient with respect to every attention weight at the
-    state's parameters: for each of wq, wk, wv, wo and each layer, whether
-    it is finite and its largest magnitude."""
+def _leaf_grads(cfg, params, tokens, names) -> list[dict]:
+    """The loss's gradient with respect to the named leaves of the first
+    sub-layer of every block at ``params``: for each leaf and layer,
+    whether it is finite and its largest magnitude."""
     from repro_torch.models.model import make_loss_fn
 
-    names = ("wq", "wk", "wv", "wo")
     block = params["blocks"]["sub0"]
     leaves = [block[n].requires_grad_() for n in names]
     loss = make_loss_fn(cfg)(params, {"tokens": tokens})
@@ -1679,7 +1753,8 @@ def phase_train() -> dict:
         wall_s = time.monotonic() - t0
         counts = _read_launches()
         peak = torch.cuda.max_memory_allocated()
-        for line in launch.report(result, TRAIN_BATCH, TRAIN_SEQ, dev, peak):
+        for line in launch.report(result, cfg, TRAIN_BATCH, TRAIN_SEQ, dev,
+                                  peak):
             log(line)
         card = describe(dev)
         expected = dict.fromkeys(counts, 0)
@@ -1721,7 +1796,8 @@ def phase_train() -> dict:
             + "; top: "
             + "; ".join(f"{k} {ms:.2f} ms" for k, ms in prof["top"]))
         tokens = pipeline.fetch_step(0)
-        grads = _attention_grads(cfg, state.params, tokens)
+        grads = _leaf_grads(cfg, state.params, tokens,
+                            ("wq", "wk", "wv", "wo"))
         del state
         bad = [f"{r['leaf']}[{r['layer']}]" for r in grads
                if not r["finite"] or not r["max_abs"] > 0]
@@ -2295,18 +2371,441 @@ def _moe_train(failures: list) -> dict:
             "step_ms": step_ms, "wall_s": wall_s}
 
 
+def _grad_gaps(cfg, params, tokens, routes: dict) -> dict:
+    """The loss and every gradient leaf at ``params`` under each of two
+    routes (config overrides; the first is held to the second): the loss's
+    relative difference, and per leaf max abs diff / max|g| of the second,
+    with the launches of each route's loss and gradient."""
+    from repro_torch.models.model import make_loss_fn
+    from repro_torch.models.transformer import flatten
+
+    pairs = flatten(params)
+    leaves = [p.requires_grad_() for _, p in pairs]
+    out = {}
+    for name, kw in routes.items():
+        _reset_launches()
+        loss = make_loss_fn(cfg.with_(**kw))(params, {"tokens": tokens})
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        out[name] = (float(loss.detach()), grads, _read_launches())
+    (loss_k, grads_k, launches_k), (loss_p, grads_p, launches_p) = \
+        out.values()
+    rel = {path: float((gk - gp).abs().max() / gp.abs().max())
+           for (path, _), gk, gp in zip(pairs, grads_k, grads_p)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+    for p in leaves:
+        p.requires_grad_(False)
+    return {"loss": {name: v[0] for name, v in out.items()},
+            "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+            "grad_rel": rel, "finite": finite,
+            "launches": {name: v[2] for name, v in out.items()}}
+
+
+def _hybrid_train(failures: list) -> dict:
+    """Reduced jamba trained through the launcher's code path (its
+    pipeline, ``train``) for TRAIN_STEPS steps at the moe-30m traffic, on
+    the card with flash, the scan and the MoE layer, remat full; then in
+    fp32 at its initial weights, the kernel route's loss and gradients
+    (flash, scan) against the plain route's (ref attention, chunked
+    scan)."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import describe
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+    from repro_torch.launch import train as launch
+    from repro_torch.models import init_params
+    from repro_torch.train import adamw, train
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(HYBRID_ARCH).reduced().with_(attn_impl="flash",
+                                                  use_mamba_kernel=True)
+    n_attn = cfg.n_blocks * sum(s.kind == "attn" for s in cfg.pattern)
+    n_mamba = cfg.n_blocks * sum(s.kind == "mamba" for s in cfg.pattern)
+    pipeline = launch.make_pipeline(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ - 1,
+                                    MOE_TRAIN_HOSTS, SERVE_POLICY, 64,
+                                    MOE_TRAIN_SHARDS, TRAIN_SEED, dev)
+    try:
+        _reset_launches()
+        t0 = time.monotonic()
+        result = train(cfg, pipeline, TRAIN_STEPS,
+                       optimizer=adamw(TRAIN_LR, warmup=TRAIN_WARMUP,
+                                       total=TRAIN_TOTAL),
+                       seed=TRAIN_SEED, log_every=TRAIN_STEPS, log=log,
+                       device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        counts = _read_launches()
+        tokens = pipeline.fetch_step(0)
+        fell = _loss_fell(cfg, result.state.params, pipeline, TRAIN_STEPS,
+                          TRAIN_SEED, dev)
+    finally:
+        pipeline.close()
+    scan_path = ms.kernel_path(MOE_TRAIN_BATCH, cfg.d_inner)
+    expected = dict.fromkeys(counts, 0)
+    expected.update({
+        "flash_attention": 2 * n_attn * TRAIN_STEPS,
+        "flash_attention/wgmma": 2 * n_attn * TRAIN_STEPS,
+        "mamba_scan": 2 * n_mamba * TRAIN_STEPS,
+        f"mamba_scan/{scan_path}": 2 * n_mamba * TRAIN_STEPS})
+    if counts != expected:
+        failures.append(f"hybrid train: launches {counts}, expected "
+                        f"{expected}")
+    losses = result.losses
+    if not (all(np.isfinite(losses)) and fell["fell"]):
+        failures.append(f"hybrid train: the loss did not fall "
+                        f"({fell['before']} -> {fell['after']} on the run's "
+                        f"batches)")
+    cfg32 = cfg.with_(dtype="float32")
+    params = init_params(cfg32, torch.Generator(dev).manual_seed(TRAIN_SEED),
+                         dev)
+    gaps = _grad_gaps(cfg32, params, tokens, {
+        "kernels": {}, "plain": {"attn_impl": "ref",
+                                 "use_mamba_kernel": False}})
+    worst = max(gaps["grad_rel"].values())
+    step_ms = statistics.median(result.step_seconds[1:]) * 1e3
+    log(f"[hybrid-train] reduced {cfg.name} ({cfg.param_count():,} "
+        f"parameters in {cfg.dtype}; {n_attn} attention, {n_mamba} Mamba "
+        f"layers, {cfg.n_experts} experts top-{cfg.top_k}), {TRAIN_STEPS} "
+        f"steps of {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens on "
+        f"{describe(dev)}: launches {counts} (2 x layers x steps each: the "
+        f"forward and the remat recompute); losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; mean loss over the run's "
+        f"batches at the initial weights {fell['before']:.4f}, at the "
+        f"trained ones {fell['after']:.4f} (must fall); {step_ms:.1f} ms per "
+        f"step (median of steps 2-{TRAIN_STEPS}), train wall {wall_s:.1f}s")
+    log(f"[hybrid-train] fp32, initial weights, one batch: loss kernels "
+        f"{gaps['loss']['kernels']:.6f} vs plain {gaps['loss']['plain']:.6f}"
+        f" (relative {gaps['loss_rel']:.3g}); gradients, max abs diff / "
+        f"max|g| over {len(gaps['grad_rel'])} leaves {worst:.3g} (tolerance "
+        f"2e-2); kernel route launches {gaps['launches']['kernels']}")
+    if not (gaps["finite"] and worst <= 2e-2):
+        failures.append(f"hybrid train: fp32 gradients, kernels vs plain "
+                        f"{worst} (finite {gaps['finite']})")
+    return {"losses": losses, "loss_on_batches": fell, "launches": counts,
+            "step_ms": step_ms, "wall_s": wall_s, "fp32_grads": gaps}
+
+
 def phase_moe() -> dict:
-    """Phase 8: qwen3-moe-30b-a3b served at full width, the hybrid check
-    and the moe-30m training check; any failure raises at the end."""
+    """Phase 8: qwen3-moe-30b-a3b served at full width, the hybrid checks
+    (served, and trained) and the moe-30m training check; any failure
+    raises at the end."""
     failures: list = []
     serve = _moe_serve(failures)
     gc.collect()
     torch.cuda.empty_cache()
     hybrid = _hybrid_serve(failures)
+    hybrid_train = _hybrid_train(failures)
     trained = _moe_train(failures)
     if failures:
         raise AssertionError("moe: " + "; ".join(failures))
-    return {"serve": serve, "hybrid": hybrid, "train": trained}
+    return {"serve": serve, "hybrid": hybrid, "hybrid_train": hybrid_train,
+            "train": trained}
+
+
+# --------------------------------------------------------------------------
+# phase 9: training falcon-mamba-7b through the launcher's code path
+# --------------------------------------------------------------------------
+
+#: the name of the profiler range around each plain backward scan
+SCAN_BACKWARD_RANGE = "mamba_scan_with_ref_vjp backward (plain chunked scan)"
+#: the products' kernels, by name (cuBLAS, cuBLASLt and CUTLASS GEMMs and
+#: GEMVs)
+PRODUCT_KERNELS = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+
+
+class _named_scan_backward:
+    """While active, each backward of ``mamba_scan_with_ref_vjp`` runs in
+    a profiler range named SCAN_BACKWARD_RANGE (the autograd node looks
+    the backward up on its class at each call)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.mamba_scan import ops as ms_ops
+
+        self.cls = ms_ops._ScanRefVJP
+        self.real = self.cls.backward
+
+        def backward(ctx, *grads):
+            with torch.profiler.record_function(SCAN_BACKWARD_RANGE):
+                return self.real(ctx, *grads)
+        self.cls.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.backward = staticmethod(self.real)
+
+
+def _profile_ssm_train(step_fn, state, pipeline, start: int):
+    """One more train step under torch.profiler, each plain backward scan
+    in its named range: host wall, card busy time (the sum of its kernels'
+    times) split into the scan kernel, the plain backward scans (every
+    kernel that runs within their ranges on the card's timeline: one
+    stream, so nothing else runs there then), the products outside them
+    and the rest, and the kernels that take the most card time.  The
+    profiler's raw events are read directly: parsing the ~450,000 kernels
+    of a step into its Python event tree takes minutes."""
+    from bisect import bisect_right
+
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = pipeline.fetch_step(start)
+    torch.cuda.synchronize()
+    with _named_scan_backward(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t_read = time.perf_counter()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, ranges = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        if e.name() == SCAN_BACKWARD_RANGE:
+            ranges.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif not e.is_user_annotation():
+            kernels.append((e.start_ns(), e.duration_ns() / 1e6, e.name()))
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    split = dict.fromkeys(("scan kernel", "plain backward scan", "products",
+                           "the rest"), 0.0)
+    by_name: dict = {}
+    for start_ns, ms, name in kernels:
+        k = bisect_right(starts, start_ns) - 1
+        if k >= 0 and start_ns < ranges[k][1]:
+            kind = "plain backward scan"
+        elif "mamba_scan_kernel" in name:
+            kind = "scan kernel"
+        elif any(w in name.lower() for w in PRODUCT_KERNELS):
+            kind = "products"
+        else:
+            kind = "the rest"
+        split[kind] += ms
+        by_name[name] = by_name.get(name, 0.0) + ms
+    busy_ms = sum(split.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return state, {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                   "busy_share": busy_ms / wall_ms, "kernels": len(kernels),
+                   "scan_backward_ranges": len(ranges), "split_ms": split,
+                   "top": [(n[:70], ms) for n, ms in top],
+                   "read_s": time.perf_counter() - t_read}
+
+
+def _products_seen(cfg, params, tokens) -> dict:
+    """The products one forward of ``cfg`` dispatches on the card, by op
+    and batch (``torch.einsum`` may lower them otherwise than on the CPU),
+    and what remat dots's policy does with each kind."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import make_hidden_forward
+
+    seen: dict = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if "mm" in func.__name__:
+                policy = T._save_products_without_batch(None, func, *args)
+                key = (f"{func.__name__} batch "
+                       f"{args[0].shape[0] if args[0].dim() == 3 else '-'}: "
+                       f"{policy.name}")
+                seen[key] = seen.get(key, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Count():
+        make_hidden_forward(cfg)(params, {"tokens": tokens})
+    return seen
+
+
+def _steps_ms(step_fn, state, pipeline, start: int, steps: int):
+    """``steps`` train steps from ``state``: host wall per step (each
+    ending in the loss's read) and the peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(steps):
+        tokens = pipeline.fetch_step(start + i)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+    return state, {"ms_per_step": [t * 1e3 for t in times],
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_ssm_train() -> dict:
+    """Phase 9: falcon-mamba-7b trained at full width, its depth cut to
+    SSM_TRAIN_LAYERS, with the scan kernel in every Mamba forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import describe
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+    from repro_torch.launch import train as launch
+    from repro_torch.models import init_params
+    from repro_torch.models.model import make_train_step
+    from repro_torch.train import adamw, train
+
+    dev = torch.device("cuda", 0)
+    full = get_config(SSM_ARCH).with_(use_mamba_kernel=True)
+    cfg = full.with_(n_layers=SSM_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    embed = 2 * full.vocab_size * full.d_model
+    per_layer = (full.param_count() - embed) // full.n_layers
+    reckon = {n: 12 * (embed + n * per_layer) for n in (full.n_layers,
+                                                       SSM_TRAIN_LAYERS)}
+    log(f"[ssm-train] {cfg.name} at its published widths: d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, state {cfg.ssm_state}, "
+        f"dt_rank {cfg.dt_rank}, conv {cfg.ssm_conv}, vocab {cfg.vocab_size} untied, "
+        f"ssm_chunk {cfg.ssm_chunk}; {per_layer:,} parameters a layer, "
+        f"{embed:,} in the embeddings; 12 B of state a parameter (bf16 "
+        f"weight and gradient, fp32 AdamW m and v): {full.n_layers} layers "
+        f"{reckon[full.n_layers] / 1e9:.1f} GB, {SSM_TRAIN_LAYERS} layers "
+        f"{reckon[SSM_TRAIN_LAYERS] / 1e9:.1f} GB, the card {total / 1e9:.1f}"
+        f" GB ({free / 1e9:.1f} free, {held / 2**30:.3f} GiB held from "
+        f"earlier phases): depth cut to {SSM_TRAIN_LAYERS} layers "
+        f"({cfg.param_count():,} parameters), remat {cfg.remat}, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ + 1} tokens from {TRAIN_SHARDS} shards "
+        f"over {TRAIN_HOSTS} executors on the card")
+    opt = adamw(TRAIN_LR, warmup=TRAIN_WARMUP, total=TRAIN_TOTAL)
+    pipeline = launch.make_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_HOSTS,
+                                    SERVE_POLICY, 64, TRAIN_SHARDS,
+                                    TRAIN_SEED, dev)
+    failures = []
+    card = describe(dev)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.monotonic()
+        result = train(cfg, pipeline, TRAIN_STEPS, optimizer=opt,
+                       seed=TRAIN_SEED, log_every=1, log=log, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        counts = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        for line in launch.report(result, cfg, TRAIN_BATCH, TRAIN_SEQ, dev,
+                                  peak):
+            log(line)
+        path = ms.kernel_path(TRAIN_BATCH, cfg.d_inner)
+        n_scan = 2 * cfg.n_layers * TRAIN_STEPS
+        expected = dict.fromkeys(counts, 0)
+        expected.update({"mamba_scan": n_scan, f"mamba_scan/{path}": n_scan})
+        log(f"[ssm-train] launches {counts} (mamba_scan: 2 x layers x steps "
+            f"= 2 x {cfg.n_layers} x {TRAIN_STEPS} = {n_scan}, the forward "
+            f"and the remat recompute, all on the {path} layout)")
+        if counts != expected:
+            failures.append(f"launches {counts}, expected {expected}")
+        losses = result.losses
+        fell = _loss_fell(cfg, result.state.params, pipeline, TRAIN_STEPS,
+                          TRAIN_SEED, dev)
+        log(f"[ssm-train] losses {', '.join(f'{x:.4f}' for x in losses)}; "
+            f"mean loss over the run's {TRAIN_STEPS} batches at the initial "
+            f"weights {fell['before']:.4f}, at the trained ones "
+            f"{fell['after']:.4f} (must fall)")
+        if not (all(np.isfinite(losses)) and fell["fell"]):
+            failures.append(f"the loss did not fall ({fell['before']} -> "
+                            f"{fell['after']} on the run's batches)")
+        step_seconds = result.step_seconds
+        step_ms = statistics.median(step_seconds[1:]) * 1e3
+        state = result.state
+        del result
+        step_fn = make_train_step(cfg, opt)
+        state, prof = _profile_ssm_train(step_fn, state, pipeline,
+                                         TRAIN_STEPS)
+        log(f"[ssm-train] 1 train step profiled ({card}): wall "
+            f"{prof['wall_ms']:.1f} ms, card busy {prof['busy_ms']:.1f} ms "
+            f"({prof['busy_share']:.3f} of the wall), {prof['kernels']} "
+            f"kernels, {prof['scan_backward_ranges']} plain backward scans; "
+            f"split: " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                   prof["split_ms"].items())
+            + "; top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in prof["top"])
+            + f" (events read in {prof['read_s']:.1f}s)")
+        tokens = pipeline.fetch_step(0)
+        grads = _leaf_grads(cfg, state.params, tokens, sorted(
+            n for n in state.params["blocks"]["sub0"] if n != "ln1_scale"))
+        bad = [f"{r['leaf']}[{r['layer']}]" for r in grads
+               if not r["finite"] or not r["max_abs"] > 0]
+        leaves = sorted({r["leaf"] for r in grads})
+        log(f"[ssm-train] full-width gradient of every Mamba leaf at the "
+            f"trained state ({', '.join(leaves)}): {len(grads)} (leaf, layer)"
+            f" slices, {len(grads) - len(bad)} finite and non-zero; smallest "
+            f"max|g| {min(r['max_abs'] for r in grads):.3g}")
+        if bad:
+            failures.append(f"Mamba gradients zero or non-finite: {bad}")
+        state, dots = _steps_ms(make_train_step(cfg.with_(remat="dots"), opt),
+                                state, pipeline, TRAIN_STEPS + 1,
+                                SSM_DOTS_STEPS)
+        log(f"[ssm-train] remat dots, {SSM_DOTS_STEPS} steps: "
+            + ", ".join(f"{t:.1f}" for t in dots["ms_per_step"])
+            + f" ms, peak device memory "
+            f"{dots['peak_memory_bytes'] / 2**30:.3f} GiB (remat full above: "
+            f"{step_ms:.1f} ms, peak {peak / 2**30:.3f} GiB)")
+        products = _products_seen(cfg.with_(n_layers=1), {
+            k: ({"sub0": {n: v[:1] for n, v in state.params["blocks"][
+                "sub0"].items()}} if k == "blocks" else v)
+            for k, v in state.params.items()}, tokens[:, :64])
+        log(f"[ssm-train] products of a 1-layer forward on the card, by op "
+            f"and batch, with remat dots's choice: {products}")
+        del state
+    finally:
+        pipeline.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = _ssm_two_layer_fp32(tokens)
+    worst = max(small["grad_rel"].values())
+    log(f"[ssm-train] 2 layers at full width in fp32, one batch: loss scan "
+        f"kernel {small['loss']['kernel']:.6f} vs plain chunked scan "
+        f"{small['loss']['plain']:.6f} (relative {small['loss_rel']:.3g}, "
+        f"tolerance 1e-4); gradients, max abs diff / max|g| over "
+        f"{len(small['grad_rel'])} leaves {worst:.3g} (tolerance 2e-2); "
+        f"launches {small['launches']['kernel']['mamba_scan']} (kernel "
+        f"route) and {small['launches']['plain']['mamba_scan']} (plain)")
+    if not (small["finite"] and small["loss_rel"] <= 1e-4):
+        failures.append(f"2-layer fp32 loss: kernel vs plain "
+                        f"{small['loss_rel']}")
+    if not worst <= 2e-2:
+        failures.append(f"2-layer fp32 gradients: kernel vs plain {worst}")
+    if small["launches"]["kernel"]["mamba_scan"] != 4:
+        failures.append(f"2-layer fp32: {small['launches']['kernel']} "
+                        f"launches, expected 2 x 2")
+    tokens_per_step = TRAIN_BATCH * (TRAIN_SEQ + 1)
+    log(f"[ssm-train] on {card}: {step_ms:.1f} ms per step (median of steps "
+        f"2-{TRAIN_STEPS}), {tokens_per_step / (step_ms * 1e-3):.0f} "
+        f"tokens/s at {SSM_TRAIN_LAYERS} of {full.n_layers} layers; peak "
+        f"device memory {peak / 2**30:.3f} GiB; train wall {wall_s:.1f}s for "
+        f"{TRAIN_STEPS} steps")
+    if failures:
+        raise AssertionError("ssm train: " + "; ".join(failures))
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "layers_published": full.n_layers, "params": cfg.param_count(),
+            "state_bytes_reckoned": reckon, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ + 1, "steps": TRAIN_STEPS, "losses": losses,
+            "loss_on_batches": fell, "step_ms": step_ms,
+            "step_ms_all": [t * 1e3 for t in step_seconds],
+            "tokens_per_s": tokens_per_step / (step_ms * 1e-3),
+            "peak_memory_bytes": peak, "held_before_bytes": held,
+            "wall_s": wall_s, "launches": counts["mamba_scan"],
+            "launches_all": counts, "profile": prof, "mamba_grads": grads,
+            "remat_dots": dots,
+            "products_seen": products, "two_layer_fp32": small, "card": card}
+
+
+def _ssm_two_layer_fp32(tokens) -> dict:
+    """One batch through a 2-layer falcon-mamba-7b at full width in fp32:
+    the loss and every gradient leaf with the scan kernel's route against
+    the plain chunked scan's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    dev = tokens.device
+    cfg = get_config(SSM_ARCH).with_(n_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED),
+                         dev)
+    return _grad_gaps(cfg, params, tokens, {
+        "kernel": {"use_mamba_kernel": True},
+        "plain": {"use_mamba_kernel": False}})
 
 
 def main(argv=None) -> int:
@@ -2333,6 +2832,7 @@ def main(argv=None) -> int:
     ssm = phase_ssm_serve()
     trained = phase_train()
     moe = phase_moe()
+    ssm_trained = phase_ssm_train()
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
@@ -2365,8 +2865,8 @@ def main(argv=None) -> int:
     fa_main, fa_prefill = fa_rows["main/serve"], fa_rows["main/prefill"]
     fa_train = fa_rows["main/train"]
     fa_moe = fa_rows["main/serve qwen3-moe"]
-    hybrid = moe["hybrid"]
-    launches_hybrid = {k: sum(h["launches"][k] for h in hybrid.values())
+    hybrid = list(moe["hybrid"].values()) + [moe["hybrid_train"]]
+    launches_hybrid = {k: sum(h["launches"][k] for h in hybrid)
                        for k in ("flash_attention", "flash_attention/wgmma",
                                  "mamba_scan")}
     line["kernels"].append({
@@ -2416,14 +2916,18 @@ def main(argv=None) -> int:
     })
     ms_rows = {r["case"]: r for r in kernels["mamba_scan"]}
     ms_main, ms_prefill = ms_rows["main/serve"], ms_rows["main/prefill"]
+    ms_train = ms_rows["main/train"]
+    ms_back = ms_rows["main/train backward (plain chunked scan)"]
     line["kernels"].append({
         "name": "mamba_scan",
         "route": "cuda",
         "source": MAMBA_SOURCE,
         "replaces": MAMBA_TPU_KERNEL,
-        "launches": ssm["launches"] + launches_hybrid["mamba_scan"],
+        "launches": (ssm["launches"] + launches_hybrid["mamba_scan"]
+                     + ssm_trained["launches"]),
         "launches_ssm_serve": ssm["launches"],
         "launches_hybrid": launches_hybrid["mamba_scan"],
+        "launches_ssm_train": ssm_trained["launches"],
         "launches_by_path": ssm["launches_by_path"],
         "path": ms_main["path"],
         "bound_share": ms_main["bound_share"],
@@ -2438,13 +2942,19 @@ def main(argv=None) -> int:
         "prefill": {k: ms_prefill[k] for k in (
             "path", "shape", "max_abs_err", "ms", "plain_ms", "host_ms",
             "bound_ms", "bound_by", "bound_share", "library_ms")},
+        "train": dict({k: ms_train[k] for k in (
+            "path", "shape", "max_abs_err", "ms", "plain_ms", "host_ms",
+            "bound_ms", "bound_by", "bound_share", "library_ms",
+            "other_path", "other_path_ms")},
+            plain_backward_ms=ms_back["host_ms"],
+            plain_backward_device_ms=ms_back["device_ms"]),
     })
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(
             {"env": env, "kernels": kernels, "flat": flat, "pipeline": pipe,
              "serve": serve, "ssm_serve": ssm, "train": trained,
-             "moe": moe,
+             "moe": moe, "ssm_train": ssm_trained,
              "kernels_line": line,
              "seconds": time.monotonic() - t_start},
             indent=2, default=str) + "\n")

@@ -75,20 +75,26 @@ def serve(cfg: ModelConfig, n_requests: int = 16, replicas: int = 2,
     return eng, done
 
 
+def mixers(cfg: ModelConfig, device: torch.device) -> str:
+    """What the forward ran: the attention impl; for Mamba layers the
+    selective scan (the CUDA kernel on the card with ``use_mamba_kernel``,
+    else the plain version); the MoE layer's experts."""
+    out = []
+    if any(s.kind == "attn" for s in cfg.pattern):
+        out.append(f"attention {cfg.attn_impl}")
+    if any(s.kind == "mamba" for s in cfg.pattern):
+        ran_kernel = cfg.use_mamba_kernel and device.type == "cuda"
+        out.append("selective scan "
+                   + ("mamba_scan kernel" if ran_kernel else "plain"))
+    if any(s.mlp == "moe" for s in cfg.pattern):
+        out.append(f"MoE {cfg.n_experts} experts top-{cfg.top_k}")
+    return ", ".join(out)
+
+
 def report(eng: ServeEngine, done: list[Request], replicas: int,
            policy: str) -> list[str]:
     """The reference's three ``[serve]`` lines, then the times (with no
     wave served there are none to report, and the line says so)."""
-    cfg = eng.cfg
-    mixers = []
-    if any(s.kind == "attn" for s in cfg.pattern):
-        mixers.append(f"attention {cfg.attn_impl}")
-    if any(s.kind == "mamba" for s in cfg.pattern):
-        ran_kernel = cfg.use_mamba_kernel and eng.device.type == "cuda"
-        mixers.append("selective scan "
-                      + ("mamba_scan kernel" if ran_kernel else "plain"))
-    if any(s.mlp == "moe" for s in cfg.pattern):
-        mixers.append(f"MoE {cfg.n_experts} experts top-{cfg.top_k}")
     lines = [
         f"[serve] served {len(done)} requests on {replicas} replicas "
         f"({policy})",
@@ -96,11 +102,11 @@ def report(eng: ServeEngine, done: list[Request], replicas: int,
         f"reused from prefix caches: {eng.reused_tokens}",
         f"[serve] router: {eng.router.stats()}",
     ]
+    ran = mixers(eng.cfg, eng.device)
     steps = sum(w.replay_steps + w.decode_steps for w in eng.waves)
     if not steps:
         lines.append(f"[serve] on {describe(eng.device)}: no wave served, "
-                     f"so no forward or decode time ({', '.join(mixers)} "
-                     f"in the forward)")
+                     f"so no forward or decode time ({ran} in the forward)")
         return lines
     fwd_ms = [w.forward_s * 1e3 for w in eng.waves]
     step_ms = sum(w.replay_s + w.decode_s for w in eng.waves) * 1e3 / steps
@@ -108,8 +114,7 @@ def report(eng: ServeEngine, done: list[Request], replicas: int,
         f"[serve] on {describe(eng.device)}: prefill forward "
         + ", ".join(f"{t:.2f}" for t in fwd_ms)
         + f" ms per wave of {WAVE} x {eng.max_seq} tokens; decode "
-        f"{step_ms:.2f} ms per step ({steps} steps, {', '.join(mixers)} "
-        f"in the forward)")
+        f"{step_ms:.2f} ms per step ({steps} steps, {ran} in the forward)")
     return lines
 
 

@@ -10,12 +10,22 @@ Without ``--reduced`` it trains the arch's full config (h2o-danube-3-4b:
 3.84 B parameters, 46 GB of bf16 weights and grads and fp32 AdamW moments,
 fits one 80 GB card).  The weights are random, drawn on the device from
 ``--seed``.  ``--attn-impl flash`` (the default) runs every attention
-forward through the hand-written CUDA kernel; the backward goes through the
-plain version, as the reference's backward is the jnp VJP.
+forward through the hand-written CUDA kernel, and ``--mamba-kernel`` (the
+default) every selective scan of a Mamba layer; each backward goes through
+the plain version, as the reference's backward is the jnp VJP.
+``--remat`` (default: the config's) picks how blocks are recomputed in the
+backward: none, full, or dots (save the products without batch
+dimensions).  falcon-mamba-7b at full width (7.27 B parameters, 87 GB of
+state) fits no single card (``chip_smoke.py`` trains it cut to 32 of its
+64 layers); its reduced form trains on the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+      --reduced --device cpu --steps 2
 
 It prints the reference's ``[train] done`` and ``[train] diffusion
 ledger`` lines, then one line with the step time, tokens per second and
-peak device memory, named with the device they ran on.
+peak device memory, named with the device they ran on and the mixers of
+the forward.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from repro_torch.core.policies import DispatchPolicy
 from repro_torch.data.dataset import ShardSpec
 from repro_torch.data.pipeline import DiffusionDataPipeline, PipelineConfig
 from repro_torch.device import describe, resolve_device
+from repro_torch.launch.serve import mixers
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.loop import TrainResult, train
 
@@ -52,13 +63,13 @@ def make_pipeline(cfg: ModelConfig, global_batch: int, seq_len: int,
     return DiffusionDataPipeline(pipe_cfg, spec, device=device)
 
 
-def report(result: TrainResult, global_batch: int, seq_len: int,
-           device: torch.device, peak_bytes: int | None = None
-           ) -> list[str]:
+def report(result: TrainResult, cfg: ModelConfig, global_batch: int,
+           seq_len: int, device: torch.device,
+           peak_bytes: int | None = None) -> list[str]:
     """The reference's two closing lines, then the times: the median step
     (the first, which builds and warms up, is left out where there are
-    more), tokens per second at that step time, and the peak device
-    memory where it was read."""
+    more), tokens per second at that step time, the peak device memory
+    where it was read, and the token mixers ``cfg``'s forward ran."""
     lines = [
         f"[train] done: {result.steps_run} steps, "
         f"final loss {result.losses[-1]:.4f}" if result.losses
@@ -75,7 +86,7 @@ def report(result: TrainResult, global_batch: int, seq_len: int,
     lines.append(f"[train] on {describe(device)}: {step_s * 1e3:.1f} ms per "
                  f"step (median of {len(times)}), {tokens / step_s:.0f} "
                  f"tokens/s at {global_batch} x {seq_len + 1} tokens a "
-                 f"step{mem}")
+                 f"step{mem} ({mixers(cfg, device)} in the forward)")
     return lines
 
 
@@ -99,13 +110,23 @@ def main(argv=None) -> int:
                     choices=("flash", "blocked", "ref"),
                     help="attention of every forward (default flash: the "
                          "hand-written CUDA kernel on the card)")
+    ap.add_argument("--mamba-kernel", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="selective scan of every Mamba forward: the "
+                         "hand-written CUDA kernel on the card (default), "
+                         "or the plain chunked path")
+    ap.add_argument("--remat", default=None, choices=("none", "full", "dots"),
+                    help="recompute blocks in the backward: none, full or "
+                         "dots (default: the config's)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = cfg.with_(attn_impl=args.attn_impl)
+    cfg = cfg.with_(attn_impl=args.attn_impl,
+                    use_mamba_kernel=args.mamba_kernel,
+                    remat=args.remat or cfg.remat)
     pipeline = make_pipeline(cfg, args.global_batch, args.seq_len,
                              args.hosts, args.policy, args.cache_mb,
                              args.shards, args.seed, dev)
@@ -117,7 +138,8 @@ def main(argv=None) -> int:
     finally:
         pipeline.close()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    for line in report(result, args.global_batch, args.seq_len, dev, peak):
+    for line in report(result, cfg, args.global_batch, args.seq_len, dev,
+                       peak):
         print(line)
     return 0
 

@@ -1,21 +1,24 @@
 """Mamba-1 selective SSM block (falcon-mamba / jamba mamba layers).
 
 The port of the reference's ``repro.models.mamba``.  The full-sequence
-block (prefill) runs the selective scan either through the hand-written
-CUDA kernel (``use_kernel``; ``kernels/mamba_scan``) or through the plain
-chunked path; decode is the O(1) recurrent update.  The reference's order
-of operations is kept where bf16 rounding depends on it: the causal conv
-as K shifted multiply-adds summed in the order of k, the projection cast
-to fp32 before its split into dt, B and C, and y cast to x's dtype before
-the gate.
+block (prefill and training) runs the selective scan either through the
+hand-written CUDA kernel (``use_kernel``; ``kernels/mamba_scan``) or
+through the plain chunked path; decode is the O(1) recurrent update.  The
+kernel is forward only: where a gradient is wanted the block takes
+``mamba_scan_with_ref_vjp`` (the kernel's forward, the plain chunked
+scan's gradients), and the plain path checkpoints each chunk, as the
+reference's ``jax.checkpoint`` does.  The reference's order of operations
+is kept where bf16 rounding depends on it: the causal conv as K shifted
+multiply-adds summed in the order of k, the projection cast to fp32
+before its split into dt, B and C, and y cast to x's dtype before the
+gate.
 
 Shapes (per layer): d_inner = expand * d_model, N = d_state, R = dt_rank.
   in_proj  (D, 2*d_inner)     conv_w  (K, d_inner)      x_proj (d_inner, R+2N)
   dt_proj  (R, d_inner)       A_log   (d_inner, N)      D      (d_inner,)
   out_proj (d_inner, D)
 
-Left out: the ``rules``/``shard`` arguments (one card, no mesh) and the
-checkpointing of the plain scan (no backward yet).
+Left out: the ``rules``/``shard`` arguments (one card, no mesh).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import ops as ms_ops
+from repro_torch.kernels.mamba_scan.ref import ssm_scan_chunked
 
 
 def mamba_param_shapes(d_model: int, d_inner: int, d_state: int,
@@ -43,40 +47,19 @@ def mamba_param_shapes(d_model: int, d_inner: int, d_state: int,
     }
 
 
-def _ssm_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-              Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
-              h0: Optional[torch.Tensor] = None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Selective scan, the reference's plain form.  u, dt (B,S,I); A (I,N);
-    Bm, Cm (B,S,N); D (I,).  Returns (y (B,S,I), h_last (B,I,N)).
-
-    dA and dBu are formed for the whole sequence at once, then a loop over
-    time; dBu in the order ``dt·B·u`` (the kernel's is ``(dt·u)·B``)."""
-    b, s, i = u.shape
-    h = (torch.zeros((b, i, A.shape[1]), dtype=torch.float32,
-                     device=u.device) if h0 is None else h0)
-    dA = torch.exp(dt[..., None] * A[None, None])                # (B,S,I,N)
-    dBu = dt[..., None] * Bm[:, :, None, :] * u[..., None]       # (B,S,I,N)
-    hs = []
-    for t in range(s):
-        h = dA[:, t] * h + dBu[:, t]
-        hs.append(h)
-    y = torch.einsum("bsin,bsn->bsi", torch.stack(hs, dim=1), Cm) \
-        + u * D[None, None]
-    return y, h
-
-
 def mamba_block(x: torch.Tensor, p: dict,
                 conv_state: Optional[torch.Tensor] = None,
                 ssm_state: Optional[torch.Tensor] = None,
                 return_state: bool = False, use_kernel: bool = False,
                 chunk: int = 256):
-    """Full-sequence Mamba block (prefill).  x (B,S,D); ``conv_state``
-    (B,K-1,I) is carried context and ``ssm_state`` (B,I,N) an initial
-    state.  Returns the output (B,S,D), and with ``return_state`` also the
-    new conv state and the last ssm state.  ``use_kernel`` runs the scan
-    through the CUDA kernel on the card (its plain version on the CPU);
-    otherwise the plain scan runs in chunks of ``chunk`` steps."""
+    """Full-sequence Mamba block (prefill and training).  x (B,S,D);
+    ``conv_state`` (B,K-1,I) is carried context and ``ssm_state`` (B,I,N)
+    an initial state.  Returns the output (B,S,D), and with
+    ``return_state`` also the new conv state and the last ssm state.
+    ``use_kernel`` runs the scan through the CUDA kernel on the card (its
+    plain version on the CPU); otherwise the plain scan runs in chunks of
+    ``chunk`` steps.  Under autograd either way differentiates the plain
+    chunked scan, one chunk's intermediates at a time."""
     b, s, _ = x.shape
     k_conv, i = p["conv_w"].shape
     n = p["A_log"].shape[-1]
@@ -103,21 +86,19 @@ def mamba_block(x: torch.Tensor, p: dict,
     Dv = p["D"].float()
     u32 = xc.float()
 
+    args = (u32, dt, A, Bm, Cm, Dv)
     if use_kernel:
-        y, h_last = ms_ops.mamba_scan(u32, dt, A, Bm, Cm, Dv, h0=ssm_state)
+        # the kernel is forward only: where a gradient is wanted, take the
+        # op whose backward is the plain chunked scan's
+        wants_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in args + (ssm_state,) if t is not None)
+        if wants_grad:
+            y, h_last = ms_ops.mamba_scan_with_ref_vjp(*args, h0=ssm_state,
+                                                       chunk=chunk)
+        else:
+            y, h_last = ms_ops.mamba_scan(*args, h0=ssm_state)
     else:
-        # chunked over the sequence: one chunk's (B, S, I, N) fp32
-        # intermediates live at a time
-        h = ssm_state
-        ys = []
-        step = min(chunk, s) if chunk > 0 else s
-        for s0 in range(0, s, step):
-            sl = slice(s0, min(s0 + step, s))
-            y_c, h = _ssm_scan(u32[:, sl], dt[:, sl], A, Bm[:, sl],
-                               Cm[:, sl], Dv, h0=h)
-            ys.append(y_c)
-        y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
-        h_last = h
+        y, h_last = ssm_scan_chunked(*args, h0=ssm_state, chunk=chunk)
     y = y.to(x.dtype) * F.silu(z)
     out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
     if return_state:

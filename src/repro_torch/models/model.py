@@ -7,9 +7,9 @@ functions over (params, batch), which callers run under
 ``torch.inference_mode()``; ``make_loss_fn`` and ``make_train_step`` are
 the training side.  PyTorch runs eagerly, so there is nothing to jit.
 
-Left out, each for its slice (``ROADMAP.md``): the encoder-decoder and
-vision branches; training Mamba sub-layers (the scan has no backward, so
-jamba does not train yet);
+Every decoder the port runs also trains: attention and Mamba sub-layers
+with dense or MoE MLPs, under remat none, full or dots.  Left out, each
+for its slice (``ROADMAP.md``): the encoder-decoder and vision branches;
 ``input_specs``, ``abstract_cache`` and ``batch_logical`` (the dry-run
 and the mesh).
 """
@@ -101,8 +101,7 @@ def make_loss_fn(cfg: ModelConfig, seq_chunk: int = 0):
     fewest chunks that keep each chunk's global fp32 logits under
     ``LOGITS_CHUNK_BYTES``).  The loss sums the masked nll of every chunk
     and divides by B·(S−1)."""
-    _check_trainable(cfg)
-    hfwd = make_hidden_forward(cfg)
+    hfwd = make_hidden_forward(cfg)   # raises for what the port cannot run
 
     def loss_fn(params, batch):
         x, aux = hfwd(params, batch)
@@ -164,12 +163,3 @@ def make_train_step(cfg: ModelConfig, optimizer):
 
     return train_step
 
-
-def _check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a model the port cannot train yet, naming the slice:
-    attention sub-layers with dense or MoE MLPs train."""
-    T._check_supported(cfg)
-    if any(spec.kind == "mamba" for spec in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training Mamba sub-layers comes with the Mamba "
-            f"training slice (the selective scan has no backward yet)")

@@ -10,21 +10,26 @@ reading its slice of the stacked leaves (a view, no copy).
 
 Remat: ``cfg.remat == "full"`` runs each block under
 ``torch.utils.checkpoint`` (its activations are recomputed in the
-backward, as ``jax.checkpoint`` does); the reference's gradient barrier is
-an XLA artifact and has no counterpart.  The MoE aux loss is summed as
+backward, as ``jax.checkpoint`` does); ``"dots"`` checkpoints it
+selectively, saving the outputs of the products without batch dimensions
+and recomputing the rest (the reference's
+``dots_with_no_batch_dims_saveable``).  The reference's gradient barrier
+is an XLA artifact and has no counterpart.  The MoE aux loss is summed as
 the reference sums it: per block in pattern order, then over the blocks.
 
 Left out, each for its slice (``ROADMAP.md``): the encoder-decoder and
-its learned positions, the vision splice, the selective remat policy
-(``remat="dots"``), logical sharding axes and ``abstract_params``.
+its learned positions, the vision splice, logical sharding axes and
+``abstract_params``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, NamedTuple, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from .config import LayerSpec, ModelConfig
@@ -291,34 +296,56 @@ def _blocks(cfg: ModelConfig, x, blocks: dict, positions):
     """The blocks in order.  Each stacked leaf is unbound into its layers'
     slices once (views), so a backward gathers each leaf's gradient with
     one stack, not a zero-filled full-size tensor per layer.  Where a
-    gradient is wanted and ``cfg.remat == "full"``, each block runs under
-    ``torch.utils.checkpoint``.  Returns (x, aux summed over the
-    blocks)."""
+    gradient is wanted and ``cfg.remat`` is ``"full"`` or ``"dots"``, each
+    block runs under ``torch.utils.checkpoint``.  Returns (x, aux summed
+    over the blocks)."""
     fn = _block_fn(cfg, positions)
     layers = [{k: v.unbind(0) for k, v in blocks[f"sub{j}"].items()}
               for j in range(len(cfg.pattern))]
-    remat = torch.is_grad_enabled() and _remat(cfg)
+    remat = _remat(cfg) if torch.is_grad_enabled() else None
     auxs = []
     for i in range(cfg.n_blocks):
         subs = [{k: v[i] for k, v in sub.items()} for sub in layers]
-        if remat:
+        if remat is not None:
             x, aux = checkpoint(fn, x, *subs, use_reentrant=False,
-                                preserve_rng_state=False)
+                                preserve_rng_state=False, **remat)
         else:
             x, aux = fn(x, *subs)
         auxs.append(aux)
     return x, torch.stack(auxs).sum()
 
 
-def _remat(cfg: ModelConfig) -> bool:
-    """Whether blocks are recomputed in the backward."""
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products_without_batch(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: save what a product without batch dimensions
+    returns, recompute everything else.  ``torch.einsum`` lowers a
+    projection such as ``bsd,di->bsi`` to ``bmm`` over a batch of 1, and a
+    product with batch dimensions (the attention's ``bhqd,bhkd``, the MoE's
+    expert products ``ecd,edf``) to ``bmm`` over their product, so a
+    ``bmm`` of batch 1 counts as a product without batch dimensions, as
+    ``mm`` and ``addmm`` do."""
+    if op in _PRODUCTS or (op is torch.ops.aten.bmm.default
+                           and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig) -> Optional[dict]:
+    """How blocks are recomputed in the backward: None (not at all, remat
+    none), or the extra arguments of ``torch.utils.checkpoint`` (none for
+    remat full; the selective policy's contexts for remat dots)."""
     if cfg.remat == "none":
-        return False
+        return None
     if cfg.remat == "full":
-        return True
-    raise NotImplementedError(
-        f"{cfg.name}: remat={cfg.remat!r} (save the matmul outputs, "
-        f"recompute the rest) comes with the selective-remat slice")
+        return {}
+    if cfg.remat == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts,
+            _save_products_without_batch)}
+    raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r} (none, full "
+                     f"or dots)")
 
 
 def forward_lm_hidden(cfg: ModelConfig, params, batch: dict

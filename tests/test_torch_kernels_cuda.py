@@ -808,3 +808,131 @@ def test_ssm_serve_engine_forward_matches_decode_replay(cuda):
         scale = float(w.prefill_logits.abs().max())
         torch.testing.assert_close(w.replay_logits, w.prefill_logits,
                                    atol=1e-4 * scale, rtol=1e-4)
+
+
+def _ms_close_as(dtype, got, want):
+    """y and h_last at the kernel's tolerance; a bf16 y at it plus one
+    bf16 rounding (as ``test_scan_op_takes_bf16_as_the_reference``)."""
+    (y, h), (y_w, h_w) = got, want
+    rtol = MS_TOL["rtol"] + (2.0 ** -7 if dtype == "bfloat16" else 0.0)
+    torch.testing.assert_close(y.float(), y_w.float(), atol=MS_TOL["atol"],
+                               rtol=rtol)
+    torch.testing.assert_close(h, h_w, **MS_TOL)
+
+
+def _scan_grads(fn, arrs, gy, gh, chunk):
+    """y, h_last and the gradients of <y, gy> + <h_last, gh> with respect
+    to every input, through ``fn`` (the op, or the plain chunked scan on
+    fp32 casts of the inputs)."""
+    ins = {k: v.detach().clone().requires_grad_() for k, v in arrs.items()}
+    y, h = fn(**ins, chunk=chunk)
+    grads = torch.autograd.grad([y, h], list(ins.values()),
+                                [gy.to(y.dtype), gh])
+    return (y, h), dict(zip(ins, grads))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,I,N", MS_CASES)
+def test_scan_ref_vjp_gradients_match_the_plain_scan(cuda, B, S, I, N,
+                                                     dtype):
+    """The op with gradients at the reference's scan cases, in chunks of
+    32 steps: one kernel launch, y and h_last at the kernel's tolerance,
+    and the gradient of every input equal to autograd's through the plain
+    chunked scan on the card (fp32: within 1e-5 of each max|g|; bf16 u,
+    dt, Bm and Cm, whose gradients come back in bf16: within 2^-7)."""
+    from repro_torch.kernels.mamba_scan.ref import ssm_scan_chunked
+
+    arrs = _ms_inputs(B, S, I, N, cuda, seed=S + I + 1)
+    if dtype == "bfloat16":
+        for k in ("u", "dt", "Bm", "Cm"):
+            arrs[k] = arrs[k].bfloat16()
+    g = torch.Generator(cuda).manual_seed(S)
+    gy = torch.randn(B, S, I, generator=g, device=cuda)
+    gh = torch.randn(B, I, N, generator=g, device=cuda)
+
+    def plain(chunk, **ins):
+        return ssm_scan_chunked(**{k: v.float() for k, v in ins.items()},
+                                chunk=chunk)
+    before = ms.launches.value
+    (y, h), got = _scan_grads(ms_ops.mamba_scan_with_ref_vjp, arrs, gy, gh,
+                              32)
+    torch.cuda.synchronize()
+    assert ms.launches.value == before + 1
+    (y_p, h_p), want = _scan_grads(lambda chunk, **ins: plain(chunk, **ins),
+                                   arrs, gy, gh, 32)
+    assert ms.launches.value == before + 1
+    _ms_close_as(dtype, (y, h), (y_p, h_p))
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    for k, w in want.items():
+        assert got[k].dtype == arrs[k].dtype and got[k].shape == w.shape, k
+        err = float((got[k].float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (k, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scan_ref_vjp_chained_halves_give_the_whole(cuda, dtype):
+    """Two halves through the op, the first's h_last fed to the second as
+    h0: y, h_last and every gradient (through h0 into the first half)
+    equal the whole sequence's through the op, within 1e-5 of each
+    max|g| in fp32 and 2^-7 with bf16 u and dt."""
+    arrs = _ms_inputs(2, 64, 16, 8, cuda, seed=11, h0=False)
+    if dtype == "bfloat16":
+        arrs["u"], arrs["dt"] = arrs["u"].bfloat16(), arrs["dt"].bfloat16()
+    g = torch.Generator(cuda).manual_seed(12)
+    gy = torch.randn(2, 64, 16, generator=g, device=cuda)
+    gh = torch.randn(2, 16, 8, generator=g, device=cuda)
+    (y, h), want = _scan_grads(ms_ops.mamba_scan_with_ref_vjp, arrs, gy, gh,
+                               16)
+
+    def halves(chunk, **ins):
+        first = {k: (v[:, :32] if v.dim() == 3 else v)
+                 for k, v in ins.items()}
+        second = {k: (v[:, 32:] if v.dim() == 3 else v)
+                  for k, v in ins.items()}
+        y1, h1 = ms_ops.mamba_scan_with_ref_vjp(**first, chunk=chunk)
+        y2, h2 = ms_ops.mamba_scan_with_ref_vjp(**second, h0=h1,
+                                                chunk=chunk)
+        return torch.cat([y1, y2], 1), h2
+    (y2, h2), got = _scan_grads(halves, arrs, gy, gh, 16)
+    torch.cuda.synchronize()
+    _ms_close_as(dtype, (y2, h2), (y, h))
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    for k, w in want.items():
+        err = float((got[k].float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (k, err)
+
+
+def test_mamba_block_under_autograd_launches_the_kernel(cuda):
+    """Reduced falcon-mamba-7b in fp32, a loss and its gradient on the
+    card with the kernel route (remat full): the scan kernel launches
+    twice per layer (the forward and the recompute), every gradient leaf
+    is within 2e-2 of its max|g| of the plain path's, and a direct
+    forward-only call on inputs that require grad still raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import make_loss_fn
+    from repro_torch.models.transformer import flatten
+
+    cfg = get_config("falcon-mamba-7b").reduced().with_(
+        dtype="float32", use_mamba_kernel=True, ssm_chunk=16)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    pairs = flatten(params)
+    leaves = [p.requires_grad_() for _, p in pairs]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda)
+    grads = {}
+    for kernel in (True, False):
+        before = ms.launches.value
+        loss = make_loss_fn(cfg.with_(use_mamba_kernel=kernel))(
+            params, {"tokens": tokens})
+        grads[kernel] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        assert ms.launches.value - before == (2 * cfg.n_layers if kernel
+                                              else 0)
+    for (path, _), gk, gp in zip(pairs, grads[True], grads[False]):
+        assert bool(torch.isfinite(gk).all()), path
+        scale = float(gp.abs().max())
+        assert float((gk - gp).abs().max()) <= 2e-2 * scale, path
+    arrs = _ms_inputs(1, 8, 16, 4, cuda, seed=13)
+    arrs["u"].requires_grad_()
+    with pytest.raises(RuntimeError, match="u require grad"):
+        ms_ops.mamba_scan(**arrs)

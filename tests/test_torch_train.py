@@ -6,6 +6,7 @@ through the diffusion pipeline from the reference's weights, the flash
 op's gradients, checkpoints that each package restores from the other,
 and the launchers."""
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
 from repro.core.policies import DispatchPolicy as JDispatchPolicy
 from repro.data.dataset import ShardSpec as JShardSpec
 from repro.data.pipeline import DiffusionDataPipeline as JPipeline
@@ -34,7 +36,6 @@ from repro.train.optimizer import Optimizer as JOptimizer
 from repro.train.optimizer import _global_norm as jax_global_norm
 from repro.train.schedule import constant as jax_constant
 from repro.train.schedule import warmup_cosine as jax_warmup_cosine
-from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core.policies import DispatchPolicy
 from repro_torch.data import DiffusionDataPipeline, PipelineConfig, ShardSpec
@@ -220,7 +221,7 @@ def test_loss_fn_matches_reference(seq_chunk, softcap):
     _close(got, want, rtol=2e-6)
 
 
-@pytest.mark.parametrize("remat", ["full", "none"])
+@pytest.mark.parametrize("remat", ["full", "none", "dots"])
 @pytest.mark.parametrize("impl", ["blocked", "flash", "ref"])
 def test_train_step_matches_reference(impl, remat):
     """One train step in fp32 from the reference's weights: the loss and
@@ -249,7 +250,7 @@ def test_train_step_matches_reference(impl, remat):
                label=path)
 
 
-@pytest.mark.parametrize("remat", ["full", "none"])
+@pytest.mark.parametrize("remat", ["full", "none", "dots"])
 def test_moe_train_step_matches_reference(remat):
     """One train step of TINY with an MoE MLP (4 experts, top-2) in every
     layer, in fp32 from the reference's weights (its remat full): the loss
@@ -295,15 +296,67 @@ def test_remat_recomputes_each_block_in_the_backward(monkeypatch):
         assert len(calls) == per_layer * cfg.n_layers, remat
 
 
-def test_remat_dots_and_mamba_training_name_their_slices():
-    cfg, _, _, params = _tiny_weights(TINY_FIELDS)
+def _count_products(fn) -> dict:
+    """How many ``bmm`` calls ``fn`` makes, by batch: 1 (a product without
+    batch dimensions, as ``torch.einsum`` lowers a projection) or more
+    (the attention's and the experts' products)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts = {"batch 1": 0, "batched": 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.bmm.default:
+                counts["batch 1" if args[0].shape[0] == 1
+                       else "batched"] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return counts
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_remat_dots_recomputes_only_the_batched_products(moe):
+    """A loss and its gradient under each remat: ``dots`` runs no product
+    without batch dimensions again in the backward (as many as remat
+    none) and every batched product again (the attention's, and the
+    experts' with MoE: remat none's count plus the forward's); ``full``
+    reruns both kinds."""
+    cfg, _, _, params = _tiny_weights(MOE_FIELDS if moe else TINY_FIELDS,
+                                      moe=moe)
+    cfg = cfg.with_(attn_impl="ref")
     tokens = torch.from_numpy(_tokens(2, 9, cfg.vocab_size))
-    with pytest.raises(NotImplementedError, match="selective-remat slice"):
-        make_loss_fn(cfg.with_(remat="dots"))(params, {"tokens": tokens})
-    for arch in ("falcon-mamba-7b", "jamba-1.5-large-398b"):
-        ssm = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="Mamba training slice"):
-            make_train_step(ssm, adamw())
+    embed = params["embed"].requires_grad_()
+
+    def step(remat):
+        loss = make_loss_fn(cfg.with_(remat=remat))(params,
+                                                    {"tokens": tokens})
+        torch.autograd.grad(loss, [embed])
+    with torch.no_grad():
+        forward = _count_products(
+            lambda: make_loss_fn(cfg)(params, {"tokens": tokens}))
+    none, dots, full = (_count_products(lambda: step(r))
+                        for r in ("none", "dots", "full"))
+    assert forward["batched"] > 0 and forward["batch 1"] > 0
+    assert dots == {"batch 1": none["batch 1"],
+                    "batched": none["batched"] + forward["batched"]}
+    assert full["batched"] == dots["batched"]
+    assert full["batch 1"] > none["batch 1"]
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
+def test_encdec_and_vision_training_name_their_slices(arch):
+    """The reference's encoder-decoder and vision configs, built field for
+    field in the port's schema: the train step is refused, naming the
+    slice that brings them (everything else the port runs trains)."""
+    jcfg = jax_get_config(arch).reduced()
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(jcfg)}
+    fields["pattern"] = tuple(LayerSpec(**dataclasses.asdict(sp))
+                              for sp in jcfg.pattern)
+    with pytest.raises(NotImplementedError, match="slice"):
+        make_train_step(ModelConfig(**fields), adamw())
 
 
 # --------------------------- flash gradients ---------------------------------
@@ -418,8 +471,6 @@ def test_moe_30m_preset_first_losses_match_reference_fp32():
     twice the reference's own blocked-vs-ref gap: at this preset's random
     init the first AdamW steps amplify rounding, and that gap passes 1e-4
     by step 4 (observed: 5.5e-4)."""
-    import dataclasses
-
     from repro_torch.apps import train_lm
 
     example = _example("train_lm.py")
