@@ -102,7 +102,30 @@ Phases, each reported on its own lines:
      share, its time split into the scan kernel, the plain backward scan,
      the products and the rest), two under remat dots (ms per step, peak
      memory beside remat full's), and the products one forward dispatches
-     on the card are listed with what remat dots does with each.
+     on the card are listed with what remat dots does with each;
+ 10. the encoder-decoder and the vision model at their published widths
+     and depths in bf16 (random weights from a seeded torch.Generator,
+     the stub frontends' embeddings from a numpy seed at the std of the
+     embedding table's entries).  whisper-base (6 encoder and 6 decoder
+     layers): the encoder over 8 x 1500 frames (6 flash launches, all
+     unmasked, on tensor cores), ``make_prefill`` on a 64-token prompt (12
+     launches: 6 unmasked, 6 causal; the cross-attention takes the plain
+     path, as in the reference), the prompt replayed through
+     ``make_serve_step`` against the encoder's output and 8 greedy
+     tokens; every self-attention layer, flash against ``ref`` on the
+     flash path's own hidden states, within 2e-2 of max|output|; in fp32
+     the replay's logits at the last prompt position against
+     ``decode_train``'s within 2e-2 of max|logit|.  Then whisper-base
+     trained 6 steps of 4 x 448 tokens through the launcher's code path
+     (the reference loop's zero frames): 2 x 12 x 6 flash launches, the
+     loss falling by phase 7's rule, a finite gradient on every encoder,
+     decoder and cross-attention leaf.  Then llava-next-mistral-7b (32
+     layers, 7.24 B parameters) at B=2, S=1024 with 576 patch embeddings
+     spliced at offset 1: ``make_forward`` and ``make_prefill`` (32 flash
+     launches each), every layer's attention against ``ref`` within 2e-2,
+     and with another image, position 0's logits bit for bit the same
+     and every later position's different.  (llava's training state, 87
+     GB, fits no card.)
 
 Phase 2 runs the stacking kernel at the reference's test shapes and the
 main path's (N=8 and N=32 at 100x100), each beside the launch floor (the
@@ -113,8 +136,10 @@ reference's eight test cases, bf16 cases of the tensor-core kernel
 MQA, bidirectional), bf16 cases of the SIMT kernel (head dims 20 and 136,
 storage off 16 bytes), the
 serving forward's shape, a long prefill, the training forward's shape
-(4 x 2048) and qwen3-moe-30b-a3b's serving shape (D 128, a GQA group of
-8), each with the kernel it took
+(4 x 2048), qwen3-moe-30b-a3b's serving shape (D 128, a GQA group of
+8), whisper-base's encoder (8 x 1500, D 64, unmasked) and
+llava-next-mistral-7b's prefill (2 x 1024, D 128, causal), each with the
+kernel it took
 (each case must take the kernel ``kernel_path``'s rule gives it, the main
 shapes the tensor-core one), its TFLOP/s and share of the bound, the host
 cost of each layer of an eager call at the serving shape, and
@@ -198,6 +223,25 @@ MOE_TRAIN_HOSTS, MOE_TRAIN_SHARDS = 4, 12
 #: 64 layers need 87 GB, more than the card); then SSM_DOTS_STEPS more
 #: steps under remat dots
 SSM_TRAIN_LAYERS, SSM_DOTS_STEPS = 32, 2
+#: phase 10: whisper-base at its published widths and depth: the encoder
+#: over 8 x 1500 frames (the reference's 30 s window), a 64-token decoder
+#: prompt replayed through the serve step, 8 greedy tokens; trained 6
+#: steps of 4 x 448 tokens (the pipeline's rows are seq_len + 1 tokens) at
+#: phase 7's optimizer without its gradient clip (at the initial weights
+#: the encoder's gradient, norm ~4e5 with the loop's zero frames, makes a
+#: clip at 1.0 shrink every other gradient under Adam's eps, so in 6 steps
+#: neither package's whisper-base learns); the replay against
+#: ``decode_train`` in fp32 at these depths (encoder and decoder cut
+#: alike, full width), held at the first and reported at the others (the
+#: random weights' rounding grows with depth, as in phase 8);
+#: llava-next-mistral-7b at B=2, S=1024, its 576 patch embeddings spliced
+#: at offset 1
+ENCDEC_ARCH, VISION_ARCH = "whisper-base", "llava-next-mistral-7b"
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 8, 1500, 64, 8
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 4, 447
+ENCDEC_TRAIN_CLIP = float("inf")
+ENCDEC_FP32_DEPTHS = (2, 3, 6)
+VISION_BATCH, VISION_SEQ = 2, 1024
 #: flash cases: (label, B, S, H, KV, D, causal, window, softcap, dtype[,
 #: offset]): the reference's eight (tests/test_kernels.py), cases beyond
 #: them, then the shapes the serving and training paths give the kernel at
@@ -239,10 +283,16 @@ FLASH_CASES = [
     ("main/prefill", 1, 8192, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
     ("main/train", 4, 2048, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
     ("main/serve qwen3-moe", 8, 96, 32, 4, 128, True, 0, 0.0, "bfloat16"),
+    # phase 10: whisper-base's encoder self-attention (unmasked; S=1500
+    # leaves a ragged last 128-key tile) and llava's prefill
+    ("main/encoder whisper-base", 8, 1500, 8, 8, 64, False, 0, 0.0,
+     "bfloat16"),
+    ("main/prefill llava", 2, 1024, 32, 8, 128, True, 0, 0.0, "bfloat16"),
 ]
 #: the main path's flash cases: each must take the tensor-core kernel
 FLASH_MAIN = ("main/serve", "main/prefill", "main/train",
-              "main/serve qwen3-moe")
+              "main/serve qwen3-moe", "main/encoder whisper-base",
+              "main/prefill llava")
 #: query rows per chunk of the plain version at long lengths (bounds its
 #: (Sq, Sk) score tensor)
 FLASH_PLAIN_Q_CHUNK = 1024
@@ -1608,19 +1658,19 @@ def _profile_train(step_fn, state, pipeline, start: int, steps: int = 2):
 
 def _loss_fell(cfg, params, pipeline, steps: int, seed: int, dev) -> dict:
     """Whether training lowered the loss on its own data: the mean loss
-    over the run's ``steps`` batches (fetched again) at the initial weights
-    (drawn again from ``seed``, as ``train`` drew them) and at ``params``,
-    and the window means of the per-step losses, for the log."""
+    over the run's ``steps`` batches (fetched again, with the train loop's
+    frontend stubs) at the initial weights (drawn again from ``seed``, as
+    ``train`` drew them) and at ``params``."""
     from repro_torch.models import init_params
     from repro_torch.models.model import make_loss_fn
+    from repro_torch.train.loop import train_batch
 
-    batches = [pipeline.fetch_step(i) for i in range(steps)]
+    batches = [train_batch(cfg, pipeline.fetch_step(i)) for i in range(steps)]
     loss_fn = make_loss_fn(cfg)
 
     def mean_loss(p) -> float:
         with torch.no_grad():
-            return float(np.mean([float(loss_fn(p, {"tokens": b}))
-                                  for b in batches]))
+            return float(np.mean([float(loss_fn(p, b)) for b in batches]))
     after = mean_loss(params)
     before = mean_loss(init_params(
         cfg, torch.Generator(dev).manual_seed(seed), dev))
@@ -2808,6 +2858,483 @@ def _ssm_two_layer_fp32(tokens) -> dict:
         "plain": {"use_mamba_kernel": False}})
 
 
+# --------------------------------------------------------------------------
+# phase 10: the encoder-decoder (whisper-base) and the vision model
+# (llava-next-mistral-7b) at their published widths
+# --------------------------------------------------------------------------
+
+def _stub_embeds(params, shape, seed: int) -> torch.Tensor:
+    """A stub frontend's embeddings: normal from a numpy seed at the std of
+    the embedding table's entries, in the table's dtype, on its device."""
+    table = params["embed"]
+    std = float(table.float().std())
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(shape) * std).astype(
+        np.float32)).to(table.device, table.dtype)
+
+
+def _flash_vs_ref(cfg, layers, x, pos, causal: bool, step) -> list[float]:
+    """Layer by layer on the flash path's own hidden states: each layer's
+    self-attention block with flash against the plain ``ref`` attention on
+    the same input (max abs diff / max|ref output|).  ``layers`` are the
+    layers' parameters; ``step(x, i)`` runs layer i on the flash path."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    var = T._variant(cfg, cfg.pattern[0], causal)
+    out = []
+    with torch.inference_mode():
+        for i, p in enumerate(layers):
+            h = T._norm(cfg, x, p, "ln1")
+            a_f, a_r = (L.attention_block(h, p, pos, var, cfg.rope_theta,
+                                          use_rope=cfg.use_rope, impl=impl)
+                        for impl in ("flash", "ref"))
+            out.append(float((a_f - a_r).abs().max() / a_r.abs().max()))
+            x = step(x, i)
+    return out
+
+
+def _median_ms(fn, reps: int = 3) -> float:
+    """Host-clock ms of ``fn`` ending in a synchronise, median of
+    ``reps`` runs after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _encdec_layer_checks(cfg, params, frames, prompt, enc) -> dict:
+    """Whisper's self-attentions layer by layer, flash against ref: the
+    encoder's (unmasked) from the framed input, the decoder's (causal)
+    from the prompt's embeddings against ``enc``."""
+    from repro_torch.models import LayerSpec
+    from repro_torch.models import transformer as T
+
+    ecfg = cfg.with_(pattern=(LayerSpec(kind="attn", attn="full",
+                                        mlp="dense"),),
+                     n_layers=cfg.enc_layers)
+    espec = ecfg.pattern[0]
+    with torch.inference_mode():
+        s_enc = frames.shape[1]
+        x = frames + T._sinusoid(s_enc, cfg.d_model, frames.device).to(
+            frames.dtype)[None]
+        epos = torch.arange(s_enc, device=frames.device)
+        elayers = [T._layer(params["encoder"]["sub0"], i)
+                   for i in range(cfg.enc_layers)]
+        encoder = _flash_vs_ref(
+            ecfg, elayers, x, epos, False,
+            lambda x, i: T._apply_sub(ecfg, espec, x, elayers[i], epos,
+                                      causal=False)[0])
+        y = T.embed_inputs(cfg, params, {"tokens": prompt})
+        dpos = torch.arange(prompt.shape[1], device=prompt.device)
+        block = T._encdec_block_fn(cfg, enc, dpos)
+        slayers = [T._layer(params["blocks"]["sub0"], i)
+                   for i in range(cfg.n_layers)]
+        xlayers = [T._layer(params["cross"]["sub0"], i)
+                   for i in range(cfg.n_layers)]
+        decoder = _flash_vs_ref(
+            cfg, slayers, y, dpos, True,
+            lambda x, i: block(x, slayers[i], xlayers[i])[0])
+    return {"encoder": encoder, "decoder": decoder}
+
+
+def _encdec_replay(cfg, params, prompt, enc, new: int = 0):
+    """The prompt through the serve step against ``enc`` (the replay),
+    then ``new`` greedy steps: (the replay's logits at the last prompt
+    position (B, V), the greedy tokens (B, new), replay s, decode s)."""
+    from repro_torch.models import init_cache, make_serve_step
+
+    step = make_serve_step(cfg)
+    b, n = prompt.shape
+    with torch.inference_mode():
+        cache = init_cache(cfg, b, n + new, device=prompt.device)
+        t0 = time.perf_counter()
+        for t in range(n):
+            lg, cache = step(params, cache, {"token": prompt[:, t: t + 1],
+                                             "pos": t, "enc_out": enc})
+        last = lg[:, -1].float()
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        tokens = []
+        tok = lg[:, -1:].argmax(-1)
+        t0 = time.perf_counter()
+        for t in range(new):
+            tokens.append(tok)
+            lg, cache = step(params, cache, {"token": tok, "pos": n + t,
+                                             "enc_out": enc})
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"decode step {t}: non-finite logits")
+            tok = lg[:, -1:].argmax(-1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    out = torch.cat(tokens, 1) if tokens else prompt[:, :0]
+    return last, out, replay_s, decode_s
+
+
+def _encdec_fp32_replay(cfg, params, frames, prompt, depth: int) -> float:
+    """The weights widened to fp32 and cut to the first ``depth`` encoder
+    and decoder layers: the serve-step replay's logits at the last prompt
+    position against ``decode_train``'s (max abs diff / max|logit|)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import flatten, unflatten
+
+    cut = cfg.with_(dtype="float32", n_layers=depth, enc_layers=depth)
+    p32 = unflatten((k, (v[:depth] if k.split("/")[0] in T._STACKED_ROOTS
+                         else v).float()) for k, v in flatten(params))
+    with torch.inference_mode():
+        enc = T.encode(cut, p32, frames.float())
+        want = T.decode_train(cut, p32, enc, prompt)[0][:, -1]
+    got = _encdec_replay(cut, p32, prompt, enc)[0]
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _encdec_serve(failures: list) -> dict:
+    """whisper-base at full width and depth in bf16: the encoder over 8 x
+    1500 frames, ``make_prefill`` on a 64-token prompt (12 flash launches,
+    each counted alone), the prompt replayed through the serve step
+    against the encoder's output and 8 greedy tokens; each self-attention
+    layer by layer against ref; the replay against ``decode_train`` in
+    fp32 end to end."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_prefill
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import flatten
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(ENCDEC_ARCH).with_(attn_impl="flash")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SERVE_SEED),
+                         dev)
+    n_params = sum(t.numel() for _, t in flatten(params))
+    B = ENCDEC_BATCH
+    frames = _stub_embeds(params, (B, ENCDEC_FRAMES, cfg.d_model), 0)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, ENCDEC_PROMPT))).to(dev)
+    batch = {"frame_embeds": frames, "tokens": prompt}
+    log(f"[encdec] {cfg.name} at its published widths and depth: "
+        f"{cfg.enc_layers} encoder and {cfg.n_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim_}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, learned positions "
+        f"{cfg.max_learned_pos}; {n_params:,} parameters in {cfg.dtype} "
+        f"(random, from seed {SERVE_SEED}); frames {tuple(frames.shape)}, "
+        f"prompt {tuple(prompt.shape)}; no cut")
+    prefill = make_prefill(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with torch.inference_mode():
+        enc = T.encode(cfg, params, frames)
+    torch.cuda.synchronize()
+    enc_counts = _read_launches()
+    _reset_launches()
+    with torch.inference_mode():
+        last = prefill(params, batch)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    last_r, generated, replay_s, decode_s = _encdec_replay(
+        cfg, params, prompt, enc, ENCDEC_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.enc_layers + cfg.n_layers
+    log(f"[encdec] flash launches: the encoder alone {_nonzero(enc_counts)};"
+        f" the prefill (encoder + decoder) {_nonzero(counts)} (expected "
+        f"{cfg.enc_layers} "
+        f"unmasked + {cfg.n_layers} causal = {L}, all on tensor cores; the "
+        f"cross-attention takes the plain path, as in the reference)")
+    if (enc_counts["flash_attention"], enc_counts["flash_attention/wgmma"]
+            ) != (cfg.enc_layers, cfg.enc_layers):
+        failures.append(f"encoder: flash launches {enc_counts}, expected "
+                        f"{cfg.enc_layers} on wgmma")
+    if (counts["flash_attention"], counts["flash_attention/wgmma"]
+            ) != (L, L):
+        failures.append(f"whisper prefill: flash launches {counts}, "
+                        f"expected {L} on wgmma")
+    if not (bool(torch.isfinite(last).all()) and bool(
+            ((generated >= 0) & (generated < cfg.vocab_size)).all())):
+        failures.append("whisper: non-finite prefill logits or tokens out "
+                        "of the vocabulary")
+    bf16_rel = float((last[:, -1] - last_r).abs().max()
+                     / last[:, -1].abs().max())
+    log(f"[encdec] greedy tokens of request 0: "
+        f"{generated[0].tolist()}; bf16 prefill vs serve-step replay at the "
+        f"last prompt position, max abs diff / max|logit| {bf16_rel:.4g} "
+        f"(reported)")
+    layers = _encdec_layer_checks(cfg, params, frames, prompt, enc)
+    worst = max(layers["encoder"] + layers["decoder"])
+    log(f"[encdec] layer by layer on the flash path's hidden states, "
+        f"attention block flash vs ref, max abs diff / max|output|: encoder "
+        f"(unmasked) " + ", ".join(f"{r:.3g}" for r in layers["encoder"])
+        + "; decoder (causal) "
+        + ", ".join(f"{r:.3g}" for r in layers["decoder"])
+        + " (tolerance 2e-2)")
+    if not worst <= 2e-2:
+        failures.append(f"whisper attention flash vs ref {worst}")
+    with torch.inference_mode():
+        enc_ms = _median_ms(lambda: T.encode(cfg, params, frames))
+        prefill_ms = _median_ms(lambda: prefill(params, batch))
+    fp32 = {d: _encdec_fp32_replay(cfg, params, frames, prompt, d)
+            for d in ENCDEC_FP32_DEPTHS}
+    held_depth = ENCDEC_FP32_DEPTHS[0]
+    log(f"[encdec] fp32, the weights widened, encoder and decoder cut to "
+        f"their first d layers at full width: serve-step replay vs "
+        f"decode_train at the last prompt position, max abs diff / "
+        f"max|logit|: " + ", ".join(f"d={d} {r:.4g}" for d, r in fp32.items())
+        + f" (tolerance 2e-2 at d={held_depth}; deeper reported: with these "
+        f"random weights rounding grows with depth)")
+    if not fp32[held_depth] <= 2e-2:
+        failures.append(f"whisper fp32 replay vs decode_train "
+                        f"{fp32[held_depth]} at {held_depth} layers")
+    decode_ms = decode_s * 1e3 / ENCDEC_NEW
+    log(f"[encdec] on {_card()}: encoder {enc_ms:.3f} ms ({B} x "
+        f"{ENCDEC_FRAMES} frames), prefill {prefill_ms:.3f} ms (encoder + "
+        f"decoder over {ENCDEC_PROMPT} tokens, median of 3), replay "
+        f"{replay_s * 1e3 / ENCDEC_PROMPT:.3f} ms per step, decode "
+        f"{decode_ms:.3f} ms per step ({ENCDEC_NEW} steps); peak device "
+        f"memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB still held "
+        f"from earlier phases)")
+    return {"arch": cfg.name, "params": n_params,
+            "launches_encoder": enc_counts, "launches": counts,
+            "bf16_prefill_vs_replay": bf16_rel, "layer_by_layer": layers,
+            "fp32_replay_vs_decode_train": fp32, "encoder_ms": enc_ms,
+            "prefill_ms": prefill_ms,
+            "replay_ms_per_step": replay_s * 1e3 / ENCDEC_PROMPT,
+            "decode_ms_per_step": decode_ms, "peak_memory_bytes": peak,
+            "held_before_bytes": held,
+            "generated": generated.tolist()}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _card() -> str:
+    from repro_torch.device import describe
+
+    return describe(torch.device("cuda", 0))
+
+
+def _encdec_train(failures: list) -> dict:
+    """whisper-base trained 6 steps at full width through the launcher's
+    code path (the reference loop's zero frames, remat full): 2 x 12 x 6
+    flash launches, the loss falls, every encoder, decoder and
+    cross-attention leaf gets a finite gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.models.model import make_loss_fn
+    from repro_torch.models.transformer import flatten
+    from repro_torch.train import adamw, train
+    from repro_torch.train.loop import train_batch
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(ENCDEC_ARCH).with_(attn_impl="flash")
+    opt = adamw(TRAIN_LR, warmup=TRAIN_WARMUP, total=TRAIN_TOTAL,
+                grad_clip=ENCDEC_TRAIN_CLIP)
+    log(f"[encdec] optimizer: adamw(peak_lr={TRAIN_LR}, warmup="
+        f"{TRAIN_WARMUP}, total={TRAIN_TOTAL}), clip {opt.grad_clip}")
+    pipeline = launch.make_pipeline(cfg, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ,
+                                    TRAIN_HOSTS, SERVE_POLICY, 64,
+                                    TRAIN_SHARDS, TRAIN_SEED, dev)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        result = train(cfg, pipeline, TRAIN_STEPS, optimizer=opt,
+                       seed=TRAIN_SEED, log_every=1, log=log, device=dev)
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        for line in launch.report(result, cfg, ENCDEC_TRAIN_BATCH,
+                                  ENCDEC_TRAIN_SEQ, dev, peak):
+            log(line)
+        n_flash = 2 * (cfg.enc_layers + cfg.n_layers) * TRAIN_STEPS
+        expected = dict.fromkeys(counts, 0)
+        expected.update({"flash_attention": n_flash,
+                         "flash_attention/wgmma": n_flash})
+        log(f"[encdec] train launches {_nonzero(counts)} (flash: 2 x "
+            f"(encoder + "
+            f"decoder layers) x steps = 2 x {cfg.enc_layers + cfg.n_layers}"
+            f" x {TRAIN_STEPS} = {n_flash}, the forward and the remat "
+            f"recompute)")
+        if counts != expected:
+            failures.append(f"whisper train launches {counts}, expected "
+                            f"{expected}")
+        fell = _loss_fell(cfg, result.state.params, pipeline, TRAIN_STEPS,
+                          TRAIN_SEED, dev)
+        log(f"[encdec] losses {', '.join(f'{x:.4f}' for x in result.losses)}"
+            f"; mean loss over the run's {TRAIN_STEPS} batches at the "
+            f"initial weights {fell['before']:.4f}, at the trained ones "
+            f"{fell['after']:.4f} (must fall)")
+        if not (all(np.isfinite(result.losses)) and fell["fell"]):
+            failures.append(f"whisper loss did not fall ({fell})")
+        params = result.state.params
+        pairs = [(k, t) for k, t in flatten(params)
+                 if k.split("/")[0] in ("encoder", "blocks", "cross")]
+        leaves = [t.requires_grad_() for _, t in pairs]
+        loss = make_loss_fn(cfg)(params, train_batch(
+            cfg, pipeline.fetch_step(0)))
+        grads = torch.autograd.grad(loss, leaves)
+        bad = [k for (k, _), g in zip(pairs, grads)
+               if not bool(torch.isfinite(g).all())]
+        zero = [k for (k, _), g in zip(pairs, grads)
+                if not float(g.abs().max()) > 0]
+        norms = {root: float(sum(g.float().square().sum() for (k, _), g
+                                 in zip(pairs, grads)
+                                 if k.startswith(root + "/")) ** 0.5)
+                 for root in ("encoder", "blocks", "cross")}
+        log(f"[encdec] gradient at the trained state of every encoder, "
+            f"decoder and cross-attention leaf: {len(pairs)} leaves, "
+            f"{len(pairs) - len(bad)} finite, {len(zero)} all zero {zero}; "
+            f"norms " + ", ".join(f"{k} {v:.4g}" for k, v in norms.items()))
+        if bad:
+            failures.append(f"whisper gradients not finite: {bad}")
+        step_ms = statistics.median(result.step_seconds[1:]) * 1e3
+        del params, leaves, grads, result
+    finally:
+        pipeline.close()
+    tokens = ENCDEC_TRAIN_BATCH * (ENCDEC_TRAIN_SEQ + 1)
+    log(f"[encdec] on {_card()}: training {step_ms:.1f} ms per step (median "
+        f"of steps 2-{TRAIN_STEPS}), {tokens / (step_ms * 1e-3):.0f} "
+        f"tokens/s, peak device memory {peak / 2**30:.3f} GiB")
+    return {"launches": counts["flash_attention"],
+            "launches_all": counts, "loss_on_batches": fell,
+            "step_ms": step_ms, "peak_memory_bytes": peak,
+            "leaves": len(pairs), "zero_grad_leaves": zero,
+            "grad_norms": norms}
+
+
+def _vision_forward(failures: list) -> dict:
+    """llava-next-mistral-7b at full width and depth in bf16:
+    ``make_forward`` and ``make_prefill`` at B=2, S=1024 with 576 patch
+    embeddings spliced at offset 1 (32 flash launches each); each layer's
+    attention against ref; the splice check with a second image."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_forward, make_prefill
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import flatten
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(VISION_ARCH).with_(attn_impl="flash")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SERVE_SEED),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    leaves = [t for _, t in flatten(params)]
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    del leaves
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (VISION_BATCH, VISION_SEQ))).to(dev)
+    shape = (VISION_BATCH, cfg.num_frontend_tokens, cfg.d_model)
+    image, other = _stub_embeds(params, shape, 5), _stub_embeds(params,
+                                                                 shape, 6)
+    batch = {"tokens": tokens, "image_embeds": image}
+    log(f"[vision] {cfg.name} at its published widths and depth: "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"over {cfg.n_kv_heads} kv heads of {cfg.head_dim_}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params:,} parameters "
+        f"({param_bytes / 1e9:.3f} GB in {cfg.dtype}) drawn on the card in "
+        f"{init_s:.2f}s; tokens {tuple(tokens.shape)}, "
+        f"{cfg.num_frontend_tokens} patch embeddings at offset "
+        f"{cfg.frontend_offset}; no cut")
+    fwd, prefill = make_forward(cfg), make_prefill(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with torch.inference_mode():
+        logits, _ = fwd(params, batch)
+    torch.cuda.synchronize()
+    fwd_counts = _read_launches()
+    _reset_launches()
+    with torch.inference_mode():
+        last = prefill(params, batch)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.n_layers
+    log(f"[vision] flash launches: make_forward {_nonzero(fwd_counts)}, "
+        f"make_prefill {_nonzero(counts)} (expected {n} each, all on tensor "
+        f"cores)")
+    for label, c in (("forward", fwd_counts), ("prefill", counts)):
+        if (c["flash_attention"], c["flash_attention/wgmma"]) != (n, n):
+            failures.append(f"llava {label}: flash launches {c}, expected "
+                            f"{n} on wgmma")
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(last).all())):
+        failures.append("llava: non-finite logits")
+    last_rel = float((last[:, -1] - logits[:, -1]).abs().max()
+                     / logits[:, -1].abs().max())
+    with torch.inference_mode():
+        logits2, _ = fwd(params, dict(batch, image_embeds=other))
+    first_equal = bool(torch.equal(logits[:, 0], logits2[:, 0]))
+    differ = (logits[:, 1:] - logits2[:, 1:]).abs().amax(-1) > 0
+    del logits2
+    log(f"[vision] splice: with another image, position 0's logits "
+        f"bit-identical {first_equal}; positions >= 1 that differ "
+        f"{int(differ.sum())} of {differ.numel()}; prefill vs forward at the "
+        f"last position, max abs diff / max|logit| {last_rel:.3g}")
+    if not (first_equal and bool(differ.all())):
+        failures.append("llava splice check failed")
+    spec = cfg.pattern[0]
+    with torch.inference_mode():
+        x = T.embed_inputs(cfg, params, batch)
+        pos = torch.arange(x.shape[1], device=dev)
+        layers = [T._layer(params["blocks"]["sub0"], i) for i in range(n)]
+        rows = _flash_vs_ref(cfg, layers, x, pos, True, lambda x, i:
+                             T._apply_sub(cfg, spec, x, layers[i], pos)[0])
+        del x
+    worst = max(rows)
+    log(f"[vision] layer by layer on the flash forward's hidden states, "
+        f"attention block flash vs ref, max abs diff / max|output| over the "
+        f"{n} layers {worst:.4g} (tolerance 2e-2)")
+    if not worst <= 2e-2:
+        failures.append(f"llava attention flash vs ref {worst}")
+    del logits, last
+    with torch.inference_mode():
+        prefill_ms = _median_ms(lambda: prefill(params, batch))
+    log(f"[vision] on {_card()}: prefill {prefill_ms:.3f} ms ({VISION_BATCH}"
+        f" x {VISION_SEQ} tokens, median of 3); peak device memory "
+        f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB still held from "
+        f"earlier phases)")
+    del params
+    return {"arch": cfg.name, "params": n_params, "param_bytes": param_bytes,
+            "init_s": init_s, "launches_forward": fwd_counts,
+            "launches": counts, "splice_first_equal": first_equal,
+            "splice_positions_differ": int(differ.sum()),
+            "prefill_vs_forward_last": last_rel, "layer_by_layer": rows,
+            "prefill_ms": prefill_ms, "peak_memory_bytes": peak,
+            "held_before_bytes": held}
+
+
+def phase_encdec() -> dict:
+    """Phase 10: whisper-base served and trained, llava-next-mistral-7b's
+    forward; any failure raises at the end."""
+    failures: list = []
+    t0 = time.monotonic()
+    serve = _encdec_serve(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = _encdec_train(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vision = _vision_forward(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[encdec] phase 10 took {time.monotonic() - t0:.1f}s")
+    if failures:
+        raise AssertionError("encdec: " + "; ".join(failures))
+    return {"whisper": serve, "whisper_train": trained, "llava": vision,
+            "seconds": time.monotonic() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--json", type=Path, default=None,
@@ -2833,6 +3360,7 @@ def main(argv=None) -> int:
     trained = phase_train()
     moe = phase_moe()
     ssm_trained = phase_ssm_train()
+    encdec = phase_encdec()
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
@@ -2865,6 +3393,14 @@ def main(argv=None) -> int:
     fa_main, fa_prefill = fa_rows["main/serve"], fa_rows["main/prefill"]
     fa_train = fa_rows["main/train"]
     fa_moe = fa_rows["main/serve qwen3-moe"]
+    fa_encoder = fa_rows["main/encoder whisper-base"]
+    fa_llava = fa_rows["main/prefill llava"]
+    launches_encdec = (
+        encdec["whisper"]["launches_encoder"]["flash_attention"]
+        + encdec["whisper"]["launches"]["flash_attention"]
+        + encdec["whisper_train"]["launches"]
+        + encdec["llava"]["launches_forward"]["flash_attention"]
+        + encdec["llava"]["launches"]["flash_attention"])
     hybrid = list(moe["hybrid"].values()) + [moe["hybrid_train"]]
     launches_hybrid = {k: sum(h["launches"][k] for h in hybrid)
                        for k in ("flash_attention", "flash_attention/wgmma",
@@ -2877,18 +3413,20 @@ def main(argv=None) -> int:
         "launches": (serve["launches"] + trained["launches"]
                      + moe["serve"]["launches"]
                      + launches_hybrid["flash_attention"]
-                     + moe["train"]["launches"]),
+                     + moe["train"]["launches"] + launches_encdec),
         "launches_serve": serve["launches"],
         "launches_train": trained["launches"],
         "launches_moe_serve": moe["serve"]["launches"],
         "launches_hybrid": launches_hybrid["flash_attention"],
         "launches_moe_train": moe["train"]["launches"],
+        "launches_encdec": launches_encdec,
         "launches_wgmma": (serve["launches_wgmma"]
                            + trained["launches_wgmma"]
                            + moe["serve"]["launches_wgmma"]
                            + launches_hybrid["flash_attention/wgmma"]
                            + moe["train"]["launches_all"][
-                               "flash_attention/wgmma"]),
+                               "flash_attention/wgmma"]
+                           + launches_encdec),
         "path": fa_main["path"],
         "shape": fa_main["shape"],
         "max_abs_err": max(fa_main["max_abs_err"], fa_prefill["max_abs_err"]),
@@ -2912,6 +3450,14 @@ def main(argv=None) -> int:
         "serve_qwen3_moe": {k: fa_moe[k] for k in (
             "path", "shape", "max_abs_err", "ms", "plain_ms", "host_ms",
             "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
+            "sdpa_flag_ms", "tflops")},
+        "encoder_whisper": {k: fa_encoder[k] for k in (
+            "path", "shape", "causal", "max_abs_err", "ms", "plain_ms",
+            "host_ms", "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
+            "sdpa_flag_ms", "tflops")},
+        "prefill_llava": {k: fa_llava[k] for k in (
+            "path", "shape", "causal", "max_abs_err", "ms", "plain_ms",
+            "host_ms", "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
             "sdpa_flag_ms", "tflops")},
     })
     ms_rows = {r["case"]: r for r in kernels["mamba_scan"]}
@@ -2954,7 +3500,7 @@ def main(argv=None) -> int:
         args.json.write_text(json.dumps(
             {"env": env, "kernels": kernels, "flat": flat, "pipeline": pipe,
              "serve": serve, "ssm_serve": ssm, "train": trained,
-             "moe": moe, "ssm_train": ssm_trained,
+             "moe": moe, "ssm_train": ssm_trained, "encdec": encdec,
              "kernels_line": line,
              "seconds": time.monotonic() - t_start},
             indent=2, default=str) + "\n")

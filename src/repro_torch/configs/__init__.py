@@ -1,11 +1,11 @@
 """Configurations the port runs (counterpart of ``repro.configs``).
 
 ``astro_stacking`` is the data-diffusion workload of slice 1.  The model
-registry holds the four dense decoders of slice 2, the Mamba-1 stack of
-slice 3 (falcon-mamba-7b) and the MoE models of slice 7 (qwen3-moe-30b-a3b,
-mixtral-8x22b and the hybrid jamba-1.5-large-398b); the encoder-decoder and
-the vision model of the reference's registry come with their slice
-(``ROADMAP.md``).
+registry is the reference's, all ten configs: the four dense decoders of
+slice 2, the Mamba-1 stack of slice 3 (falcon-mamba-7b), the MoE models of
+slice 7 (qwen3-moe-30b-a3b, mixtral-8x22b and the hybrid
+jamba-1.5-large-398b) and the encoder-decoder and vision model of slice 9
+(whisper-base, llava-next-mistral-7b).
 ``--arch <id>`` resolves through :func:`get_config`.
 """
 from __future__ import annotations
@@ -13,14 +13,14 @@ from __future__ import annotations
 from repro_torch.models.config import ModelConfig
 
 from . import (falcon_mamba_7b, gemma2_27b, h2o_danube3_4b,
-               jamba15_large_398b, mixtral_8x22b, nemotron4_15b,
-               qwen3_moe_30b_a3b, starcoder2_15b)
+               jamba15_large_398b, llava_next_mistral_7b, mixtral_8x22b,
+               nemotron4_15b, qwen3_moe_30b_a3b, starcoder2_15b, whisper_base)
 
 REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (starcoder2_15b, h2o_danube3_4b, gemma2_27b, nemotron4_15b,
-              falcon_mamba_7b, qwen3_moe_30b_a3b, mixtral_8x22b,
-              jamba15_large_398b)
+              llava_next_mistral_7b, falcon_mamba_7b, qwen3_moe_30b_a3b,
+              mixtral_8x22b, whisper_base, jamba15_large_398b)
 }
 
 ARCH_IDS = tuple(REGISTRY)

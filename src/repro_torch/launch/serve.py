@@ -10,7 +10,11 @@ The port of the reference's ``repro.launch.serve``, on the card:
 
 It prints the reference's three ``[serve]`` lines, then one line with the
 forward (prefill) and decode times, named with the device they ran on.
-The weights are random, drawn on the device from ``--seed``.
+The weights are random, drawn on the device from ``--seed``.  As in the
+reference, the encoder-decoder (whisper-base) is not served here: the
+launcher prints the reference's line saying so and exits 0; and the
+vision model (llava-next-mistral-7b) fails as the reference's does, with
+a ``KeyError`` for ``image_embeds``, since the engine passes only tokens.
 ``--attn-impl flash`` (the default) runs the prefill forward's attention
 through the hand-written CUDA kernel, which is what replaces the
 reference's ``blocked`` attention on an accelerator; ``--mamba-kernel``
@@ -143,6 +147,10 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encdec:
+        print("[serve] enc-dec serving demo uses the decoder-only path of a "
+              "dense arch; pick an LM arch for this driver")
+        return 0
     cfg = cfg.with_(attn_impl=args.attn_impl,
                     use_mamba_kernel=args.mamba_kernel)
     eng, done = serve(cfg, args.requests, args.replicas, args.policy,

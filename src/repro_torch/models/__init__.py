@@ -1,6 +1,6 @@
-"""The LM substrate of the port: configuration schema, the decoder
-and its step builders, and the MoE layer (counterpart of
-``repro.models``)."""
+"""The LM substrate of the port: configuration schema, the decoder and the
+encoder-decoder with their step functions, and the MoE layer (counterpart
+of ``repro.models``)."""
 from .config import LayerSpec, ModelConfig
 from .model import (lm_loss, make_forward, make_loss_fn, make_prefill,
                     make_serve_step, make_train_step)

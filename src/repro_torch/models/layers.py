@@ -7,8 +7,9 @@ weights.  Attention supports full and sliding-window (SWA) masks, logit
 softcapping (gemma2) and GQA with any kv-head count; ``impl="flash"`` runs
 the hand-written CUDA flash-attention kernel on the card.
 
-Left out: the ``rules``/``shard`` arguments (one card, no mesh) and
-``cross_attention_block`` (the encoder-decoder slice).
+Cross-attention (the encoder-decoder's) takes the plain attention, as the
+reference's does: its call sites never hand it ``cfg.attn_impl``.  Left
+out: the ``rules``/``shard`` arguments (one card, no mesh).
 """
 from __future__ import annotations
 
@@ -258,6 +259,26 @@ def attention_decode(x: torch.Tensor, p: dict, cache_k: torch.Tensor,
     out = out.reshape(x.shape[0], 1, h, dh).to(x.dtype)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return y, cache_k, cache_v
+
+
+def cross_attention_block(x: torch.Tensor, enc: torch.Tensor, p: dict,
+                          impl: str = "blocked") -> torch.Tensor:
+    """Decoder states x (B,Sq,D) attend to the encoder's output enc
+    (B,Sk,D), unmasked; p holds wq, wk, wv, wo.  Blocked attention for
+    Sq > 1 under ``impl="blocked"`` (the default every caller takes), else
+    the plain GQA attention (one decode position)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", enc, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc, p["wv"].to(x.dtype))
+    sq, sk = x.shape[1], enc.shape[1]
+    q_pos = torch.arange(sq, device=x.device)
+    k_pos = torch.arange(sk, device=x.device)
+    variant = AttnVariant(kind="full", causal=False)
+    if impl == "blocked" and sq > 1:
+        out = blocked_attention(q, k, v, q_pos, k_pos, variant)
+    else:
+        out = gqa_attention(q, k, v, q_pos, k_pos, variant)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,20 @@
 """Model API: the loss, and the step functions that the trainer, the
 serving engine and the launchers call.
 
-The port of the reference's ``repro.models.model``, decoder branch:
-``make_forward``, ``make_prefill`` and ``make_serve_step`` return plain
-functions over (params, batch), which callers run under
-``torch.inference_mode()``; ``make_loss_fn`` and ``make_train_step`` are
-the training side.  PyTorch runs eagerly, so there is nothing to jit.
+The port of the reference's ``repro.models.model``: ``make_forward``,
+``make_prefill`` and ``make_serve_step`` return plain functions over
+(params, batch), which callers run under ``torch.inference_mode()``;
+``make_loss_fn`` and ``make_train_step`` are the training side.  PyTorch
+runs eagerly, so there is nothing to jit.
 
-Every decoder the port runs also trains: attention and Mamba sub-layers
-with dense or MoE MLPs, under remat none, full or dots.  Left out, each
-for its slice (``ROADMAP.md``): the encoder-decoder and vision branches;
-``input_specs``, ``abstract_cache`` and ``batch_logical`` (the dry-run
-and the mesh).
+Each of these has the reference's three branches: the decoder (batch
+``{"tokens"}``), the vision model (``{"tokens", "image_embeds"}``, the
+stub frontend's patch embeddings spliced in at ``cfg.frontend_offset``)
+and the encoder-decoder (``{"frame_embeds", "tokens"}``; its serve step
+reads the encoder's output as ``"enc_out"``).  Every config the port runs
+also trains, under remat none, full or dots.  Left out, for the parallel
+slice (``ROADMAP.md``): ``input_specs``, ``abstract_cache`` and
+``batch_logical`` (the dry-run and the mesh).
 """
 from __future__ import annotations
 
@@ -52,32 +55,54 @@ def lm_loss(cfg: ModelConfig, logits: torch.Tensor, tokens: torch.Tensor,
 
 def make_forward(cfg: ModelConfig) -> Callable[..., tuple[torch.Tensor,
                                                           torch.Tensor]]:
-    """fwd(params, {"tokens": (B,S)}) -> (logits (B,S,V) fp32, aux)."""
+    """fwd(params, batch) -> (logits (B,S,V) fp32, aux).  The vision
+    model's batch must hold ``image_embeds`` (a ``KeyError`` otherwise, as
+    in the reference), the encoder-decoder's ``frame_embeds``."""
     T._check_supported(cfg)
-
-    def fwd(params, batch):
-        return T.forward_lm(cfg, params, batch["tokens"])
+    if cfg.is_encdec:
+        def fwd(params, batch):
+            return T.forward_encdec(cfg, params, batch["frame_embeds"],
+                                    batch["tokens"])
+    elif cfg.frontend == "vision":
+        def fwd(params, batch):
+            return T.forward_lm(cfg, params, batch["tokens"],
+                                image_embeds=batch["image_embeds"])
+    else:
+        def fwd(params, batch):
+            return T.forward_lm(cfg, params, batch["tokens"])
     return fwd
 
 
 def make_prefill(cfg: ModelConfig):
     """Full-sequence forward that returns the LAST position's logits
-    (B, 1, V): the serving semantic."""
+    (B, 1, V): the serving semantic.  The encoder-decoder encodes
+    ``frame_embeds`` and runs the decoder over ``tokens``; the decoder
+    reads what the batch holds through ``embed_inputs``."""
     T._check_supported(cfg)
+    if cfg.is_encdec:
+        def prefill(params, batch):
+            enc = T.encode(cfg, params, batch["frame_embeds"])
+            x, _ = T._decoder_hidden(cfg, params, enc, batch["tokens"])
+            return T._unembed(cfg, params, x[:, -1:, :])
+        return prefill
 
     def prefill(params, batch):
-        x = T.embed_inputs(cfg, params, batch)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = T._blocks(cfg, x, params["blocks"], positions)
-        x = T._norm(cfg, x, params, "final")
+        x, _ = T.forward_lm_hidden(cfg, params, batch)
         return T._unembed(cfg, params, x[:, -1:, :])
     return prefill
 
 
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, cache, {"token": (B,1), "pos": int}) ->
-    (logits (B,1,V), cache): one-token decode against the KV/state cache."""
+    (logits (B,1,V), cache): one-token decode against the KV/state cache.
+    The encoder-decoder's batch also holds the encoder's output,
+    ``"enc_out"`` (B, S_enc, D)."""
     T._check_supported(cfg)
+    if cfg.is_encdec:
+        def serve_step(params, cache, batch):
+            return T.decode_step_encdec(cfg, params, cache, batch["enc_out"],
+                                        batch["token"], batch["pos"])
+        return serve_step
 
     def serve_step(params, cache, batch):
         return T.decode_step_lm(cfg, params, cache, batch["token"],
@@ -88,6 +113,11 @@ def make_serve_step(cfg: ModelConfig):
 def make_hidden_forward(cfg: ModelConfig):
     """fwd(params, batch) -> (hidden (B,S,D) after the final norm, aux)."""
     T._check_supported(cfg)
+    if cfg.is_encdec:
+        def fwd(params, batch):
+            return T.forward_encdec_hidden(cfg, params, batch["frame_embeds"],
+                                           batch["tokens"])
+        return fwd
 
     def fwd(params, batch):
         return T.forward_lm_hidden(cfg, params, batch)
@@ -101,7 +131,7 @@ def make_loss_fn(cfg: ModelConfig, seq_chunk: int = 0):
     fewest chunks that keep each chunk's global fp32 logits under
     ``LOGITS_CHUNK_BYTES``).  The loss sums the masked nll of every chunk
     and divides by B·(S−1)."""
-    hfwd = make_hidden_forward(cfg)   # raises for what the port cannot run
+    hfwd = make_hidden_forward(cfg)
 
     def loss_fn(params, batch):
         x, aux = hfwd(params, batch)

@@ -1,5 +1,6 @@
-"""The patterned decoder of the LM-family architectures: attention and
-Mamba-1 sub-layers with dense MLPs, MoE MLPs or none.
+"""The patterned decoder of the LM-family architectures (attention and
+Mamba-1 sub-layers with dense MLPs, MoE MLPs or none) and the
+encoder-decoder (whisper).
 
 The port of the reference's ``repro.models.transformer``.  Parameters are
 the reference's nested dict with the same leaf names, shapes and dtypes:
@@ -13,13 +14,20 @@ Remat: ``cfg.remat == "full"`` runs each block under
 backward, as ``jax.checkpoint`` does); ``"dots"`` checkpoints it
 selectively, saving the outputs of the products without batch dimensions
 and recomputing the rest (the reference's
-``dots_with_no_batch_dims_saveable``).  The reference's gradient barrier
-is an XLA artifact and has no counterpart.  The MoE aux loss is summed as
-the reference sums it: per block in pattern order, then over the blocks.
+``dots_with_no_batch_dims_saveable``).  The same remat applies to the
+encoder's blocks and to the encoder-decoder's decoder blocks.  The
+reference's gradient barrier is an XLA artifact and has no counterpart.
+The MoE aux loss is summed as the reference sums it: per block in pattern
+order, then over the blocks.
 
-Left out, each for its slice (``ROADMAP.md``): the encoder-decoder and
-its learned positions, the vision splice, logical sharding axes and
-``abstract_params``.
+The modality frontends are stubs, as in the reference: the vision model
+takes precomputed patch embeddings (``image_embeds``, spliced into the
+token embeddings at ``cfg.frontend_offset``), the encoder-decoder
+precomputed frame embeddings (``frame_embeds``), and a decoder can take
+its input embeddings whole (``inputs_embeds``).
+
+Left out, for the parallel slice (``ROADMAP.md``): logical sharding axes
+and ``abstract_params``.
 """
 from __future__ import annotations
 
@@ -83,20 +91,8 @@ def _norm_defs(cfg: ModelConfig, name: str) -> dict[str, ParamDef]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet, naming the slice that
-    brings it: attention and mamba sub-layers with dense or MoE MLPs (or
-    none) run."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder comes with the encdec slice")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend comes with the "
-            f"vision slice")
-    if not cfg.use_rope and cfg.max_learned_pos > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: learned positions (pos_embed) come with the "
-            f"encdec slice")
+    """Raise for a sub-layer kind the model does not know (attention and
+    mamba sub-layers, with dense or MoE MLPs or none, run)."""
     for spec in cfg.pattern:
         if spec.kind not in ("attn", "mamba"):
             raise NotImplementedError(
@@ -160,6 +156,21 @@ def param_defs(cfg: ModelConfig) -> dict[str, Any]:
     defs.update(_norm_defs(cfg, "final"))
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((V, D))
+    if not cfg.use_rope and cfg.max_learned_pos > 0:
+        defs["pos_embed"] = ParamDef((cfg.max_learned_pos, D))
+    if cfg.is_encdec:
+        enc_sub: dict[str, ParamDef] = {}
+        enc_sub.update(_norm_defs(cfg, "ln1"))
+        enc_sub.update(_attn_defs(cfg))
+        enc_sub.update(_norm_defs(cfg, "ln2"))
+        enc_sub.update(_mlp_defs(cfg))
+        defs["encoder"] = {"sub0": _stack(enc_sub, cfg.enc_layers)}
+        defs.update({f"enc_{k}": v
+                     for k, v in _norm_defs(cfg, "final").items()})
+        cross: dict[str, ParamDef] = {}
+        cross.update(_norm_defs(cfg, "ln_x"))
+        cross.update({f"x_{k}": v for k, v in _attn_defs(cfg).items()})
+        defs["cross"] = {"sub0": _stack(cross, cfg.n_layers)}
     return defs
 
 
@@ -214,6 +225,10 @@ def _materialize(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
     return out
 
 
+#: the subtrees whose leaves carry a leading layer dim
+_STACKED_ROOTS = ("blocks", "encoder", "cross")
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda") -> dict:
     """Random weights at the config's widths, by the reference's rules:
@@ -226,7 +241,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     dev = torch.device(device)
     return unflatten(
         (path, _materialize(d, cfg, generator, dev,
-                            stacked=path.startswith("blocks/")))
+                            stacked=path.split("/")[0] in _STACKED_ROOTS))
         for path, d in flatten(param_defs(cfg)))
 
 
@@ -280,31 +295,31 @@ def _layer(block: dict, i: int) -> dict:
     return {k: v[i] for k, v in block.items()}
 
 
-def _block_fn(cfg: ModelConfig, positions):
+def _block_fn(cfg: ModelConfig, positions, causal: bool = True):
     """Block i: all sub-layers of the pattern, each with its parameters.
     Returns (x, the block's aux summed in pattern order)."""
     def fn(x, *subs):
         total = None
         for spec, p in zip(cfg.pattern, subs):
-            x, aux = _apply_sub(cfg, spec, x, p, positions)
+            x, aux = _apply_sub(cfg, spec, x, p, positions, causal)
             total = aux if total is None else total + aux
         return x, total
     return fn
 
 
-def _blocks(cfg: ModelConfig, x, blocks: dict, positions):
-    """The blocks in order.  Each stacked leaf is unbound into its layers'
+def _run_layers(cfg: ModelConfig, fn, x, stacks: list[dict], n: int):
+    """``x, aux = fn(x, *layer_params)`` for each of ``n`` layers, where
+    layer i's parameters are the i-th slices of each of ``stacks`` (dicts
+    of stacked leaves).  Each stacked leaf is unbound into its layers'
     slices once (views), so a backward gathers each leaf's gradient with
     one stack, not a zero-filled full-size tensor per layer.  Where a
     gradient is wanted and ``cfg.remat`` is ``"full"`` or ``"dots"``, each
-    block runs under ``torch.utils.checkpoint``.  Returns (x, aux summed
-    over the blocks)."""
-    fn = _block_fn(cfg, positions)
-    layers = [{k: v.unbind(0) for k, v in blocks[f"sub{j}"].items()}
-              for j in range(len(cfg.pattern))]
+    layer runs under ``torch.utils.checkpoint``.  Returns (x, aux summed
+    over the layers)."""
+    layers = [{k: v.unbind(0) for k, v in stack.items()} for stack in stacks]
     remat = _remat(cfg) if torch.is_grad_enabled() else None
     auxs = []
-    for i in range(cfg.n_blocks):
+    for i in range(n):
         subs = [{k: v[i] for k, v in sub.items()} for sub in layers]
         if remat is not None:
             x, aux = checkpoint(fn, x, *subs, use_reentrant=False,
@@ -313,6 +328,15 @@ def _blocks(cfg: ModelConfig, x, blocks: dict, positions):
             x, aux = fn(x, *subs)
         auxs.append(aux)
     return x, torch.stack(auxs).sum()
+
+
+def _blocks(cfg: ModelConfig, x, blocks: dict, positions,
+            causal: bool = True):
+    """The blocks in order (``causal=False``: the encoder's unmasked
+    self-attention).  Returns (x, aux summed over the blocks)."""
+    return _run_layers(cfg, _block_fn(cfg, positions, causal), x,
+                       [blocks[f"sub{j}"] for j in range(len(cfg.pattern))],
+                       cfg.n_blocks)
 
 
 _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -359,8 +383,35 @@ def forward_lm_hidden(cfg: ModelConfig, params, batch: dict
 
 
 def embed_inputs(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
-    """tokens -> (B, S, D) residual stream."""
-    return L.embed(batch["tokens"], params["embed"], cfg.embed_scale)
+    """tokens (+ the stub frontend's embeddings) -> (B, S, D) residual
+    stream: ``inputs_embeds`` (B, S, D) replace the token embeddings;
+    ``image_embeds`` (B, T, D) overwrite T of them from
+    ``cfg.frontend_offset``; a learned position table is added."""
+    if "inputs_embeds" in batch:
+        x = batch["inputs_embeds"].to(torch_dtype(cfg.dtype))
+    else:
+        x = L.embed(batch["tokens"], params["embed"], cfg.embed_scale)
+        if "image_embeds" in batch:
+            x = _splice(x, batch["image_embeds"].to(x.dtype),
+                        cfg.frontend_offset)
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][: x.shape[1]][None].to(x.dtype)
+    return x
+
+
+def _splice(x: torch.Tensor, img: torch.Tensor, offset: int) -> torch.Tensor:
+    """``img`` (B, T, D) written over ``x`` (B, S, D) from position
+    ``offset``, as ``jax.lax.dynamic_update_slice`` writes it: the start is
+    clamped into [0, S − T], so the image always fits (at S − T when
+    S < offset + T), and an image longer than S is refused.  Built with
+    ``torch.cat``, not written in place, so autograd keeps the token
+    embeddings it saved."""
+    s, t = x.shape[1], img.shape[1]
+    if t > s or img.shape[0] != x.shape[0] or img.shape[2] != x.shape[2]:
+        raise TypeError(f"image_embeds of shape {tuple(img.shape)} do not "
+                        f"fit the token embeddings' {tuple(x.shape)}")
+    start = min(max(offset, 0), s - t)
+    return torch.cat([x[:, :start], img, x[:, start + t:]], dim=1)
 
 
 def _unembed(cfg: ModelConfig, params, x) -> torch.Tensor:
@@ -368,12 +419,112 @@ def _unembed(cfg: ModelConfig, params, x) -> torch.Tensor:
     return L.unembed(x, table, cfg.final_softcap)
 
 
-def forward_lm(cfg: ModelConfig, params, tokens: torch.Tensor
+def forward_lm(cfg: ModelConfig, params, tokens: torch.Tensor,
+               image_embeds: Optional[torch.Tensor] = None,
+               inputs_embeds: Optional[torch.Tensor] = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B,S,V) fp32, aux scalar).  The aux loss is
-    the MoE routers'; a model without MoE has 0."""
-    x, aux = forward_lm_hidden(cfg, params, {"tokens": tokens})
+    the MoE routers'; a model without MoE has 0.  ``image_embeds`` (B, T,
+    D) are the vision stub's patch embeddings, ``inputs_embeds`` (B, S, D)
+    replace the token embeddings (see :func:`embed_inputs`)."""
+    batch = {"tokens": tokens}
+    if image_embeds is not None:
+        batch["image_embeds"] = image_embeds
+    if inputs_embeds is not None:
+        batch["inputs_embeds"] = inputs_embeds
+    x, aux = forward_lm_hidden(cfg, params, batch)
     return _unembed(cfg, params, x), aux
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper): the frontend is a stub, the encoder takes
+# precomputed frame embeddings
+# ---------------------------------------------------------------------------
+
+def _sinusoid(S: int, D: int, device=None) -> torch.Tensor:
+    """(S, D) fp32 sinusoid positions: sin then cos of pos / 10000^(2i/D)."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(D // 2, dtype=torch.float32, device=device)[None]
+    angle = pos / torch.pow(10_000.0, 2 * dim / D)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def encode(cfg: ModelConfig, params, frame_embeds: torch.Tensor
+           ) -> torch.Tensor:
+    """frame_embeds (B, S_enc, D) -> the encoder's output (B, S_enc, D):
+    sinusoid positions, then ``cfg.enc_layers`` blocks of unmasked
+    self-attention (through ``cfg.attn_impl``) and a dense MLP, then the
+    encoder's final norm."""
+    x = frame_embeds.to(torch_dtype(cfg.dtype))
+    S = x.shape[1]
+    x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None]
+    positions = torch.arange(S, device=x.device)
+    ecfg = cfg.with_(pattern=(LayerSpec(kind="attn", attn="full",
+                                        mlp="dense"),),
+                     n_layers=cfg.enc_layers)
+    x, _ = _blocks(ecfg, x, params["encoder"], positions, causal=False)
+    return _norm(cfg, x, params, "enc_final")
+
+
+def _encdec_block_fn(cfg: ModelConfig, enc: torch.Tensor, positions):
+    """One decoder layer in whisper's order: causal self-attention,
+    cross-attention to ``enc``, then the MLP, each with its residual.
+    Returns (x, 0): the decoder has no aux loss."""
+    spec = cfg.pattern[0]
+
+    def fn(x, self_p, cross_p):
+        h = _norm(cfg, x, self_p, "ln1")
+        x = x + L.attention_block(h, self_p, positions, _variant(cfg, spec),
+                                  cfg.rope_theta, use_rope=cfg.use_rope,
+                                  impl=cfg.attn_impl)
+        x = x + L.cross_attention_block(_norm(cfg, x, cross_p, "ln_x"), enc,
+                                        _cross_params(cross_p))
+        h = _norm(cfg, x, self_p, "ln2")
+        x = x + L.mlp_block(h, self_p, cfg.mlp_act)
+        return x, torch.zeros((), device=x.device)
+    return fn
+
+
+def _cross_params(cross_p: dict) -> dict:
+    """A layer's cross-attention weights under the attention's names."""
+    return {k[2:]: v for k, v in cross_p.items() if k.startswith("x_")}
+
+
+def forward_encdec_hidden(cfg: ModelConfig, params, frame_embeds,
+                          dec_tokens) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encoder, then the decoder up to its final norm (the chunked loss's
+    input).  Returns (hidden (B,S_dec,D), aux 0)."""
+    enc = encode(cfg, params, frame_embeds)
+    return _decoder_hidden(cfg, params, enc, dec_tokens)
+
+
+def _decoder_hidden(cfg: ModelConfig, params, enc, dec_tokens):
+    """The decoder over ``dec_tokens`` against the encoder's output ``enc``,
+    up to its final norm: (hidden (B,S_dec,D), aux 0)."""
+    x = embed_inputs(cfg, params, {"tokens": dec_tokens})
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = _run_layers(cfg, _encdec_block_fn(cfg, enc, positions), x,
+                         [params["blocks"]["sub0"], params["cross"]["sub0"]],
+                         cfg.n_layers)
+    return _norm(cfg, x, params, "final"), aux
+
+
+def decode_train(cfg: ModelConfig, params, enc: torch.Tensor,
+                 dec_tokens: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decoder over ``dec_tokens`` (B, S_dec) against the encoder's
+    output: (logits (B,S_dec,V) fp32, aux 0)."""
+    x, aux = _decoder_hidden(cfg, params, enc, dec_tokens)
+    return _unembed(cfg, params, x), aux
+
+
+def forward_encdec(cfg: ModelConfig, params, frame_embeds: torch.Tensor,
+                   dec_tokens: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """frame_embeds (B, S_enc, D), dec_tokens (B, S_dec) -> (logits
+    (B,S_dec,V) fp32, aux 0)."""
+    return decode_train(cfg, params, encode(cfg, params, frame_embeds),
+                        dec_tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -413,7 +564,7 @@ def decode_step_lm(cfg: ModelConfig, params, cache, token: torch.Tensor,
     """One-token serve step: token (B, 1) at absolute position ``pos`` (a
     host integer).  Returns (logits (B,1,V), cache); the cache is updated
     in place."""
-    x = L.embed(token, params["embed"], cfg.embed_scale)
+    x = _embed_at(cfg, params, token, pos)
     for i in range(cfg.n_blocks):
         for j, spec in enumerate(cfg.pattern):
             c = _layer(cache[f"sub{j}"], i)
@@ -452,3 +603,40 @@ def _decode_sub(cfg: ModelConfig, spec: LayerSpec, x, p, cache: dict,
             h = _norm(cfg, h, p, "post_ln2")
         x = x + h
     return x
+
+
+def _embed_at(cfg: ModelConfig, params, token: torch.Tensor, pos: int):
+    """The token's embedding plus, with a learned position table, its row
+    ``pos`` (clamped into the table, as ``dynamic_slice`` clamps)."""
+    x = L.embed(token, params["embed"], cfg.embed_scale)
+    if "pos_embed" in params:
+        table = params["pos_embed"]
+        row = min(max(pos, 0), table.shape[0] - 1)
+        x = x + table[row: row + 1][None].to(x.dtype)
+    return x
+
+
+def decode_step_encdec(cfg: ModelConfig, params, cache, enc: torch.Tensor,
+                       token: torch.Tensor, pos: int
+                       ) -> tuple[torch.Tensor, Any]:
+    """Whisper's one-token decode step: token (B, 1) at ``pos`` (a host
+    integer), the self-attention cache updated in place, cross-attention
+    to the encoder's output ``enc`` (B, S_enc, D).  Returns (logits
+    (B,1,V), cache)."""
+    x = _embed_at(cfg, params, token, pos)
+    spec = cfg.pattern[0]
+    for i in range(cfg.n_layers):
+        self_p = _layer(params["blocks"]["sub0"], i)
+        cross_p = _layer(params["cross"]["sub0"], i)
+        c = _layer(cache["sub0"], i)
+        h = _norm(cfg, x, self_p, "ln1")
+        h, _, _ = L.attention_decode(h, self_p, c["k"], c["v"], pos,
+                                     _variant(cfg, spec), cfg.rope_theta,
+                                     use_rope=cfg.use_rope)
+        x = x + h
+        x = x + L.cross_attention_block(_norm(cfg, x, cross_p, "ln_x"), enc,
+                                        _cross_params(cross_p))
+        h = _norm(cfg, x, self_p, "ln2")
+        x = x + L.mlp_block(h, self_p, cfg.mlp_act)
+    x = _norm(cfg, x, params, "final")
+    return _unembed(cfg, params, x), cache

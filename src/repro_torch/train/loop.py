@@ -11,7 +11,9 @@ The port of the reference's ``repro.train.loop``, on the card:
   * pipeline host failures are handled by the diffusion runtime
     (re-dispatch + index invalidation), invisible here.
 
-It logs the reference's ``[train]`` lines.
+The modality frontends are stubs, as in the reference: the vision model
+trains on a zero image and the encoder-decoder on zero frames
+(:func:`train_batch`).  It logs the reference's ``[train]`` lines.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.data.pipeline import DiffusionDataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import init_params, make_train_step
+from repro_torch.models.transformer import torch_dtype
 from .checkpoint import CheckpointManager
 from .optimizer import Optimizer, TrainState, adamw
 
@@ -41,6 +44,22 @@ class TrainResult:
     step_seconds: list[float] = field(default_factory=list)
     #: the state after the last step (its tensors on the device)
     state: Optional[TrainState] = None
+
+
+def train_batch(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
+    """The train step's batch for ``tokens`` (B, S) on their device: with
+    the reference loop's frontend stubs, zero patch embeddings (B, T, D)
+    for the vision model and zero frame embeddings (B, S, D) for the
+    encoder-decoder, in ``cfg.dtype``."""
+    batch = {"tokens": tokens}
+    B, S = tokens.shape
+    stub = dict(dtype=torch_dtype(cfg.dtype), device=tokens.device)
+    if cfg.frontend == "vision":
+        batch["image_embeds"] = torch.zeros(
+            (B, cfg.num_frontend_tokens, cfg.d_model), **stub)
+    if cfg.is_encdec:
+        batch["frame_embeds"] = torch.zeros((B, S, cfg.d_model), **stub)
+    return batch
 
 
 def train(
@@ -62,7 +81,7 @@ def train(
     the reference's, through ``convert.params_from_jax``)."""
     dev = resolve_device(device)
     opt = optimizer or adamw(3e-4, warmup=20, total=max(n_steps, 100))
-    step_fn = make_train_step(cfg, opt)   # raises for what cannot train
+    step_fn = make_train_step(cfg, opt)
     if params is None:
         params = init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
     state = opt.init(params)
@@ -80,7 +99,7 @@ def train(
     t0 = time.time()
     for step, tokens in pipeline.batches(start_step, n_steps - start_step):
         t_step = time.perf_counter()
-        state, metrics = step_fn(state, {"tokens": tokens.to(dev)})
+        state, metrics = step_fn(state, train_batch(cfg, tokens.to(dev)))
         loss = float(metrics["loss"])
         step_seconds.append(time.perf_counter() - t_step)
         losses.append(loss)

@@ -465,6 +465,72 @@ def test_serve_forward_launches_flash_once_per_layer(cuda):
             x, _ = T._apply_sub(cfg, spec, x, p, pos)
 
 
+def test_encdec_forward_launches_flash_per_self_attention(cuda, monkeypatch):
+    """The bf16 forward of reduced whisper-base with flash launches the
+    kernel once per encoder layer (unmasked) and once per decoder layer
+    (causal), each on the tensor-core path, and never for the
+    cross-attention, which takes the plain path as in the reference; its
+    logits agree with the plain ``ref`` attention's within 2e-2 of
+    max|logit|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_forward
+
+    cfg = get_config("whisper-base").reduced().with_(attn_impl="flash")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    gen = torch.Generator(cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     device=cuda, generator=gen),
+             "frame_embeds": torch.randn(
+                 (2, 150, cfg.d_model), device=cuda, generator=gen,
+                 dtype=torch.bfloat16) / cfg.vocab_size ** 0.5}
+    masks = []
+    real = fa_ops.flash_attention_fwd
+
+    def recording(q, k, v, causal=True, **kw):
+        masks.append(causal)
+        return real(q, k, v, causal=causal, **kw)
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd", recording)
+    before = fa.launches.value
+    before_tc = fa.path_launches["wgmma"].value
+    logits, _ = make_forward(cfg)(params, batch)
+    torch.cuda.synchronize()
+    n = cfg.enc_layers + cfg.n_layers
+    assert fa.launches.value - before == n
+    assert fa.path_launches["wgmma"].value - before_tc == n
+    assert masks == [False] * cfg.enc_layers + [True] * cfg.n_layers
+    ref, _ = make_forward(cfg.with_(attn_impl="ref"))(params, batch)
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(logits, ref, atol=2e-2 * scale, rtol=0)
+
+
+def test_vision_forward_launches_flash_once_per_layer(cuda):
+    """The bf16 forward of reduced llava-next-mistral-7b with its patch
+    embeddings spliced in launches the kernel once per layer on the
+    tensor-core path, and agrees with the plain ``ref`` attention's
+    within 2e-2 of max|logit|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_forward
+
+    cfg = get_config("llava-next-mistral-7b").reduced().with_(
+        attn_impl="flash")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    gen = torch.Generator(cuda).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     device=cuda, generator=gen),
+             "image_embeds": torch.randn(
+                 (2, cfg.num_frontend_tokens, cfg.d_model), device=cuda,
+                 generator=gen, dtype=torch.bfloat16) / cfg.vocab_size ** 0.5}
+    before = fa.launches.value
+    before_tc = fa.path_launches["wgmma"].value
+    logits, _ = make_forward(cfg)(params, batch)
+    torch.cuda.synchronize()
+    assert fa.launches.value - before == cfg.n_layers
+    assert fa.path_launches["wgmma"].value - before_tc == cfg.n_layers
+    ref, _ = make_forward(cfg.with_(attn_impl="ref"))(params, batch)
+    torch.testing.assert_close(logits, ref, atol=2e-2 * float(
+        ref.abs().max()), rtol=0)
+
+
 def test_serve_engine_forward_matches_decode_replay(cuda):
     """The launcher's traffic on reduced h2o-danube-3-4b in fp32 on the
     card: one flash launch per layer per wave, and each wave's forward

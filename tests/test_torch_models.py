@@ -626,31 +626,38 @@ def test_decode_replay_matches_forward(arch):
                                   "qwen3-moe-30b-a3b", "llava-next-mistral-7b"])
 def test_other_families_name_their_slice(arch):
     """The reference's other families, built field for field in the port's
-    schema: the encoder-decoder and the vision model are refused with the
-    slice that brings them.  The MoE families (qwen3-moe, and jamba's
-    hybrid), which the port now runs, give the reference's fp32 logits and
-    aux within 1e-4 on the reference's weights."""
+    schema, are the port's own configs and give the reference's fp32
+    logits (and MoE aux) within 1e-4 on the reference's weights: the MoE
+    families (qwen3-moe, and jamba's hybrid) on tokens, the
+    encoder-decoder on tokens and frame embeddings, the vision model on
+    tokens and patch embeddings (the stubs at the scale of the embedding
+    table's rows).  The name is the test's from before the encoder-decoder
+    and vision slice, when those two were refused."""
     jcfg = jax_get_config(arch).reduced()
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(jcfg)}
     fields["pattern"] = tuple(LayerSpec(**dataclasses.asdict(s))
                               for s in jcfg.pattern)
     cfg = ModelConfig(**fields)
-    if jcfg.family not in ("moe", "hybrid"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            param_defs(cfg)
-        with pytest.raises(NotImplementedError, match="slice"):
-            make_forward(cfg)
-        return
     assert cfg == get_config(arch).reduced()
     jcfg, cfg = jcfg.with_(dtype="float32"), cfg.with_(dtype="float32")
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(2))
     params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
                              device="cpu")
-    toks = _rng(17).integers(0, 256, (2, 12))
+    r = _rng(17)
+    batch = {"tokens": r.integers(0, 256, (2, 12)).astype(np.int32)}
+    stub = 1 / np.sqrt(cfg.vocab_size)
+    if cfg.is_encdec:
+        batch["frame_embeds"] = (r.standard_normal((2, 16, cfg.d_model))
+                                 * stub).astype(np.float32)
+    if cfg.frontend == "vision":
+        batch["image_embeds"] = (r.standard_normal(
+            (2, cfg.num_frontend_tokens, cfg.d_model)) * stub
+        ).astype(np.float32)
     want, jaux = jax.jit(jax_make_forward(jcfg))(
-        jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     with torch.inference_mode():
-        got, aux = make_forward(cfg)(params, {"tokens": torch.from_numpy(toks)})
+        got, aux = make_forward(cfg)(
+            params, {k: torch.from_numpy(v) for k, v in batch.items()})
     _close(got, want, "float32")
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-4)
