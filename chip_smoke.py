@@ -126,6 +126,24 @@ Phases, each reported on its own lines:
      and with another image, position 0's logits bit for bit the same
      and every later position's different.  (llava's training state, 87
      GB, fits no card.)
+ 11. the stacking workload on an elastic executor pool: Table 2's
+     locality-30 row in full (23,695 requests over 790 files, the
+     stacking trace's popularity) arriving as a sine wave (mean 395/s,
+     amplitude 375/s, period 30 s, two periods on the wall clock) at a pool
+     that starts at one 1 GiB-cache executor on the card and that the
+     dynamic resource provisioner grows and shrinks (exponential, 1 to 64
+     executors, the quickstart's elastic knobs), through RuntimeEngine; each
+     request holds its executor for the paper's host time of a request
+     (§5.2: radec2xy and a GZ decompress, 42 ms) and then runs the stacking
+     kernel (``astro.decode_and_stack``).  Every task must complete; the pool
+     must grow in each period and shrink between the peaks; the kernel must
+     launch once per completed task plus once per attempt that ran on an
+     executor released under it (the provisioner reads the idle set before
+     it releases, so a task dispatched in between runs again); no
+     provisioning action may fail; the first 64 results must match the
+     plain version.  Then, with the tasks settled, every idle executor but
+     one is released and the card's allocated memory must fall by at
+     least the bytes of the storages only those executors cached.
 
 Phase 2 runs the stacking kernel at the reference's test shapes and the
 main path's (N=8 and N=32 at 100x100), each beside the launch floor (the
@@ -167,6 +185,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -185,6 +204,13 @@ BF16_OPS_PER_S = 989e12
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 FLAT_TASKS, FLAT_LOCALITY, FLAT_HOSTS = 46_480, 10, 64   # Table 2, ANL/UC
+#: phase 11: Table 2's locality-30 row under a sine wave sized by the
+#: reference's rule (the peak wants the whole pool, the trough almost none,
+#: at 95% amplitude): two periods, about 60 s, on the wall clock
+ELASTIC_LOCALITY, ELASTIC_PERIOD_S = 30, 30.0
+ELASTIC_ARRIVALS = {"kind": "SineWaveArrivals", "mean_rate": 395.0,
+                    "amplitude": 375.0, "period_s": ELASTIC_PERIOD_S,
+                    "phase": 0.0}
 CHECKED_TASKS = 64
 PIPE_GROUPS, PIPE_GROUP_SIZE, PIPE_HOSTS = 8, 4, 4       # example defaults
 
@@ -3335,6 +3361,174 @@ def phase_encdec() -> dict:
             "seconds": time.monotonic() - t0}
 
 
+# --------------------------------------------------------------------------
+# phase 11: the stacking workload on an elastic executor pool
+# --------------------------------------------------------------------------
+
+class _PoolMonitor(threading.Thread):
+    """Samples (pool size, allocated device memory) every ``period_s``
+    while a run goes on, for the memory the card holds at the peak pool."""
+
+    def __init__(self, rt, period_s: float = 0.25) -> None:
+        super().__init__(daemon=True, name="pool-monitor")
+        self.rt, self.period_s = rt, period_s
+        self.samples: list[tuple[float, int, int]] = []
+        self.stop_evt = threading.Event()
+
+    def run(self) -> None:
+        t0 = time.monotonic()
+        while not self.stop_evt.wait(self.period_s):
+            self.samples.append((time.monotonic() - t0, len(self.rt.workers),
+                                 torch.cuda.memory_allocated()))
+
+
+def phase_elastic(card: str) -> dict:
+    from repro_torch.apps import astro
+    from repro_torch.configs.astro_stacking import WORKLOADS, workload
+    from repro_torch.experiments import RuntimeEngine
+    from repro_torch.kernels.stacking.stacking import launches
+
+    n_tasks, n_files = WORKLOADS[ELASTIC_LOCALITY]
+    prov = astro.ELASTIC_PROVISIONER
+    spec = astro.elastic_spec(n_tasks, n_files, ELASTIC_ARRIVALS, prov)
+    log(f"[elastic] {n_tasks} tasks over {n_files} files (Table 2, locality "
+        f"{ELASTIC_LOCALITY}; no cut), sine arrivals mean "
+        f"{ELASTIC_ARRIVALS['mean_rate']:.0f}/s amplitude "
+        f"{ELASTIC_ARRIVALS['amplitude']:.0f}/s period "
+        f"{ELASTIC_PERIOD_S:.0f}s at time scale 1; pool from 1 executor, "
+        f"{prov.policy} provisioner {prov.min_executors}-"
+        f"{prov.max_executors}, idle timeout {prov.idle_timeout_s}s, "
+        f"cooldown {prov.trigger_cooldown_s}s, tick {prov.period_s}s")
+    t0 = time.monotonic()
+    torch.cuda.empty_cache()
+    eng = RuntimeEngine(device="cuda").prepare(spec)
+    try:
+        rt = eng.runtime
+        for ob in eng.workload.objects:
+            rt.put_object(ob, astro.make_tiles(ob))
+        log(f"[elastic] set-up (catalog made on the host, "
+            f"{n_files * astro.FILE_BYTES / 1e9:.3f} GB): "
+            f"{time.monotonic() - t0:.2f}s")
+        torch.cuda.synchronize()
+        mem_start = torch.cuda.memory_allocated()
+        monitor = _PoolMonitor(rt)
+        monitor.start()
+        launches.reset()
+        try:
+            rep = eng.run(task_fn=astro.decode_and_stack, time_scale=1.0,
+                          timeout=600.0)
+            torch.cuda.synchronize()
+            n_launch = launches.value
+        finally:
+            monitor.stop_evt.set()
+            monitor.join(5.0)
+        done = rt.dispatcher.completed
+        retries = sum(t.attempts for t in rt.dispatcher.tasks.values())
+        shape = astro.pool_shape(list(rep.pool_log), ELASTIC_PERIOD_S)
+        at_peak = max((m for _, n, m in monitor.samples
+                       if n == shape["peak"]), default=0)
+        ideal = workload(ELASTIC_LOCALITY).ideal_cache_hit_ratio
+        b = rep.bytes_by_kind
+        log(f"[elastic] completed {rep.n_completed}/{rep.n_tasks} failed "
+            f"{rep.n_failed} | wall {rep.wall_s:.2f}s | "
+            f"{rep.tasks_per_second:.1f} tasks/s over the busy span "
+            f"({rep.busy_span_s:.2f}s) | {card}")
+        log(f"[elastic] pool: low {shape['low']}, peak {shape['peak']}, "
+            f"{shape['rises']} rises and {shape['falls']} falls, grew in "
+            f"periods {shape['grew']}, shrank between the peaks "
+            f"{shape['shrank']}; allocated {rep.n_allocated}, released "
+            f"{rep.n_released}; executor-seconds {rep.executor_seconds:.2f}, "
+            f"performance index {rep.performance_index:.4f}")
+        # the log has one entry per executor added or removed: print the
+        # size it had at the end of each tenth of a second that changed it
+        tenths = {round(t, 1): n for t, n in rep.pool_log}
+        log("[elastic] pool log (s:executors): "
+            + " ".join(f"{t:.1f}:{n}" for t, n in tenths.items()))
+        log(f"[elastic] cache hit ratio {rep.cache_hit_ratio:.4f} (ideal "
+            f"1-1/L = {ideal:.4f}; local {rep.local_hits}, peer "
+            f"{rep.peer_hits}, store {rep.store_reads})")
+        log(f"[elastic] bytes: store {b['store_read'] / 1e9:.4f} GB, local "
+            f"{b['local'] / 1e9:.4f} GB, cache-to-cache {b['c2c'] / 1e9:.4f} "
+            f"GB")
+        log(f"[elastic] stack_rois launches {n_launch} (completed "
+            f"{rep.n_completed}, attempts run on a released executor "
+            f"{rt.dropped_attempts}, re-queued attempts the dispatcher "
+            f"counted {retries}); failed provisioning actions "
+            f"{len(eng.provision_failures)}")
+        failures = []
+        if rep.n_completed != n_tasks or rep.n_failed:
+            failures.append("not every task completed")
+        if not (all(shape["grew"]) and shape["shrank"] and shape["peak"] > 1
+                and rep.n_allocated > 0 and rep.n_released > 0):
+            failures.append(f"the pool did not grow in each peak and shrink "
+                            f"between them ({shape})")
+        if n_launch != rep.n_completed + rt.dropped_attempts:
+            failures.append(f"{n_launch} launches for {rep.n_completed} "
+                            f"tasks and {rt.dropped_attempts} re-run attempts")
+        if rt.dropped_attempts > retries:
+            failures.append("more attempts ran on released executors than "
+                            "the dispatcher re-queued")
+        if eng.provision_failures:
+            failures.append(f"provisioning failed: {eng.provision_failures}")
+        worst = 0.0
+        for t in done[:CHECKED_TASKS]:
+            want = _recompute(eng, t, [int(oid[3:]) for oid in t.inputs])
+            if t.result.device.type != "cuda":
+                raise AssertionError(f"{t.tid}: result not on the card")
+            worst = max(worst, check_close(t.tid, t.result, want)[0])
+        log(f"[elastic] first {CHECKED_TASKS} completed tasks against the "
+            f"plain version on the card: max abs err {worst:.3g}")
+        # the driver stopped with the tasks; give the idle pool back now
+        with rt._lock:
+            idle = rt.provision_idle(time.monotonic(), 0.0)
+        release = idle[:max(len(idle) - prov.min_executors, 0)]
+        held_alone = rt.exclusive_cache_bytes(release)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        rt.provision_release(release)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        results_bytes = sum(t.result.untyped_storage().nbytes()
+                            for t in done)
+        log(f"[elastic] device memory allocated: {mem_start / 2**30:.3f} GiB "
+            f"before the run, {at_peak / 2**30:.3f} GiB at the peak pool "
+            f"({shape['peak']} executors), {before / 2**30:.3f} GiB after it "
+            f"on {len(release) + len(rt.workers)} executors, "
+            f"{after / 2**30:.3f} GiB after releasing {len(release)} "
+            f"(fell {(before - after) / 2**20:.2f} MiB; the storages only "
+            f"they cached {held_alone / 2**20:.2f} MiB; the results held by "
+            f"the dispatcher {results_bytes / 2**30:.3f} GiB) | {card}")
+        if len(rt.workers) != prov.min_executors:
+            failures.append(f"{len(rt.workers)} executors left after the "
+                            f"release, not {prov.min_executors}")
+        if not (held_alone > 0 and before - after >= held_alone):
+            failures.append(f"releasing {len(release)} executors freed "
+                            f"{before - after} bytes of the {held_alone} "
+                            f"only they held")
+        if failures:
+            raise AssertionError("elastic: " + "; ".join(failures))
+        return {"tasks": n_tasks, "files": n_files, "card": card,
+                "wall_s": rep.wall_s, "busy_span_s": rep.busy_span_s,
+                "tasks_per_second": rep.tasks_per_second,
+                "pool": shape, "pool_log": rep.pool_log,
+                "n_allocated": rep.n_allocated, "n_released": rep.n_released,
+                "executor_seconds": rep.executor_seconds,
+                "performance_index": rep.performance_index,
+                "cache_hit_ratio": rep.cache_hit_ratio, "ideal": ideal,
+                "bytes_by_kind": b, "launches": n_launch,
+                "dropped_attempts": rt.dropped_attempts,
+                "requeued_attempts": retries,
+                "memory_start": mem_start, "memory_at_peak_pool": at_peak,
+                "memory_before_release": before,
+                "memory_after_release": after,
+                "released": len(release), "held_alone_bytes": held_alone,
+                "results_bytes": results_bytes,
+                "checked_max_abs_err": worst,
+                "seconds": time.monotonic() - t0}
+    finally:
+        eng.shutdown()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--json", type=Path, default=None,
@@ -3361,6 +3555,7 @@ def main(argv=None) -> int:
     moe = phase_moe()
     ssm_trained = phase_ssm_train()
     encdec = phase_encdec()
+    elastic = phase_elastic(env["nvidia_smi"])
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
@@ -3373,9 +3568,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": STACKING_SOURCE,
         "replaces": STACKING_TPU_KERNEL,
-        "launches": flat["launches"] + pipe["launches"],
+        "launches": flat["launches"] + pipe["launches"] + elastic["launches"],
         "launches_flat": flat["launches"],
         "launches_pipeline": pipe["launches"],
+        "launches_elastic": elastic["launches"],
         "shape": main_row["shape"],
         "max_abs_err": main_err,
         "ms": main_row["ms"],
@@ -3501,6 +3697,7 @@ def main(argv=None) -> int:
             {"env": env, "kernels": kernels, "flat": flat, "pipeline": pipe,
              "serve": serve, "ssm_serve": ssm, "train": trained,
              "moe": moe, "ssm_train": ssm_trained, "encdec": encdec,
+             "elastic": elastic,
              "kernels_line": line,
              "seconds": time.monotonic() - t_start},
             indent=2, default=str) + "\n")

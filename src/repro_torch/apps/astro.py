@@ -32,20 +32,27 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
 import torch
 
-from repro_torch.configs.astro_stacking import ROI_SHAPE, workload
+from repro_torch.configs.astro_stacking import (GZ_DECOMPRESS_S, RADEC2XY_S,
+                                                ROI_SHAPE, workload)
 from repro_torch.core import DataObject
 from repro_torch.experiments import (CacheSpec, ClusterSpec, ExperimentSpec,
-                                     RuntimeEngine, WorkloadSpec)
+                                     ProvisionerSpec, RuntimeEngine,
+                                     WorkloadSpec)
 from repro_torch.kernels.stacking import ops as st_ops
 
 SEED = 0
 H, W = ROI_SHAPE
 TILES_PER_FILE = 8
 FILE_BYTES = TILES_PER_FILE * H * W * 4
+#: the host time of one stacking request on the paper's executors (§5.2):
+#: radec2xy and decompressing a 2 MB GZ file.  The store here keeps the
+#: tiles decoded, and the coadd runs on the card.
+HOST_DECODE_S = RADEC2XY_S + GZ_DECOMPRESS_S
 
 
 def make_tiles(ob: DataObject) -> np.ndarray:
@@ -92,6 +99,14 @@ def stack_object(inputs):
     one ROI -- one file (classic) or a whole stack group (k-input join)."""
     tiles = _tiles(list(inputs.values()))
     return _coadd(tiles, [int(oid[3:]) for oid in inputs])
+
+
+def decode_and_stack(inputs):
+    """Flat task that first holds its executor for the paper's host time of
+    a request (``HOST_DECODE_S``), then coadds like :func:`stack_object`:
+    the service time a pool of executors shares out."""
+    time.sleep(HOST_DECODE_S)
+    return stack_object(inputs)
 
 
 def stack_or_mosaic(inputs):
@@ -185,6 +200,57 @@ def flat_spec(objects: int, locality: float, hosts: int,
             n_tasks=objects, n_objects=n_files,
             object_bytes=FILE_BYTES, object_prefix="img", seed=SEED),
         seed=SEED)
+
+
+#: the quickstart's elastic provisioner knobs with the ANL/UC testbed's pool
+#: of 64 executors
+ELASTIC_PROVISIONER = ProvisionerSpec(
+    policy="exponential", min_executors=1, max_executors=64,
+    queue_threshold=2, idle_timeout_s=4.0, trigger_cooldown_s=1.0,
+    period_s=1.0)
+
+
+def elastic_spec(n_tasks: int, n_files: int, arrivals: dict,
+                 provisioner: ProvisionerSpec = ELASTIC_PROVISIONER,
+                 ) -> ExperimentSpec:
+    """§4.3 stacking-trace requests over an ``img{i}`` catalog of
+    ``n_files`` files, arriving as ``arrivals`` (an arrival binding, e.g. a
+    ``SineWaveArrivals`` one), on an elastic pool: one 1 GiB-cache executor
+    at the start, grown and shrunk by ``provisioner``.  Each request costs
+    ``HOST_DECODE_S`` of compute (run it with :func:`decode_and_stack`)."""
+    return ExperimentSpec(
+        name="astro-elastic",
+        cluster=ClusterSpec(testbed="anl_uc", n_nodes=1),
+        cache=CacheSpec(capacity_bytes=1 << 30),
+        policy="max-compute-util",
+        provisioner=provisioner,
+        workload=WorkloadSpec(
+            name="astro",
+            arrivals=arrivals,
+            popularity={"kind": "StackingTrace",
+                        "locality": max(round(n_tasks / n_files), 1),
+                        "shuffle_seed": SEED, "k": 1, "corr": 1.0},
+            n_tasks=n_tasks, n_objects=n_files,
+            object_bytes=FILE_BYTES, object_prefix="img",
+            compute_seconds=HOST_DECODE_S, seed=SEED),
+        seed=SEED)
+
+
+def pool_shape(pool_log, period_s: float) -> dict:
+    """What a pool log shows under two periods of a phase-0 sine wave
+    (peaks at a quarter period, troughs at three quarters): whether the
+    pool grew in each period, whether it shrank between the two peaks, and
+    its low, its peak and its numbers of rises and falls."""
+    steps = list(zip(pool_log, pool_log[1:]))
+    grew = [any(n > m and k * period_s <= t < (k + 1) * period_s
+                for (_, m), (t, n) in steps) for k in (0, 1)]
+    shrank = any(n < m and period_s / 4 <= t < 1.25 * period_s
+                 for (_, m), (t, n) in steps)
+    return {"grew": grew, "shrank": shrank,
+            "low": min(n for _, n in pool_log),
+            "peak": max(n for _, n in pool_log),
+            "rises": sum(n > m for (_, m), (_, n) in steps),
+            "falls": sum(n < m for (_, m), (_, n) in steps)}
 
 
 def run_flat(args) -> int:

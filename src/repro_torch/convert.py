@@ -29,15 +29,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (flatten, param_defs, torch_dtype,
                                             unflatten)
 
-#: reference spec fields this package does not keep, with the reference's
-#: defaults: a saved spec may carry them only at these values.
+#: reference spec fields this package does not keep (the fleet's and the
+#: observability layer's), with the reference's defaults: a saved spec may
+#: carry them only at these values.
 _DROPPED_SPEC_FIELDS = {
-    "provisioner": None,
-    "write_outputs_to": "local",
-    "index_update_interval_s": 0.0,
-    "release_policy": "discard",
-    "flow_solver": "incremental",
-    "speculation_factor": 0.0,
     "hosts": 0,
     "threads_per_host": 1,
     "wire_batch": 64,

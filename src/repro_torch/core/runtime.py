@@ -18,6 +18,10 @@ Where the card enters (the one departure from the reference):
   * a task function always receives device tensors: after a miss,
     ``_resolve`` returns the admitted device copy (or, when the cache refuses
     an object larger than its capacity, a device copy made for this task).
+  * removing an executor (a failure, or the provisioner releasing it) drops
+    its cache in ``remove_executor`` itself, so when that returns the card
+    no longer holds a tensor that only this executor held.  A tensor a
+    surviving executor also caches (a peer hit shares it by reference) stays.
 
 Byte accounting stays on ``DataObject.size_bytes``, exactly as in the
 reference, so the ledger, hit ratios and RunReport fields keep their
@@ -244,6 +248,14 @@ class CacheExecutorBase:
         self.alive = False
         self.inbox.close()
 
+    def drop_cache(self) -> None:
+        """Forget every cached payload (the executor was removed).  The cache
+        becomes a zero-capacity one, so an attempt still running here admits
+        nothing more: it keeps only the references it holds itself."""
+        with self.lock:
+            self.cache = ExecutorCache(0, self.cache.policy)
+            self.payloads.clear()
+
     # -- cache ops (thread-safe) ---------------------------------------------
     def cache_lookup(self, oid: str) -> Optional[Any]:
         with self.lock:
@@ -351,6 +363,10 @@ class DiffusionRuntime:
         self._next_worker_id = 0
         self._cap = cache_capacity_bytes
         self._cpol = cache_policy
+        # attempts that ran on an executor removed while they ran: their
+        # outcome is dropped (the dispatcher re-queued the task), so each is
+        # one execution of the task function beyond its completed one
+        self.dropped_attempts = 0
         # membership log: (seconds since construction, live workers) per
         # change -- the experiment layer's RunReport reads pool history here
         self._t0 = time.monotonic()
@@ -401,6 +417,7 @@ class DiffusionRuntime:
                                   len(self.workers)))
             self._deregister_locked(eid, failed)
         w.stop()
+        w.drop_cache()
         self._pump()
 
     def _deregister_locked(self, eid: str, failed: bool) -> None:
@@ -426,6 +443,44 @@ class DiffusionRuntime:
             self._outstanding -= terminal
             if self._outstanding == 0:
                 self._done.notify_all()
+
+    # -- provisioning hooks ------------------------------------------------------
+    # The wall-clock DRP driver (repro_torch.experiments._ProvisionerDriver)
+    # talks to the pool only through these three methods, in executor units.
+
+    def provision_grow(self, n: int) -> None:
+        for _ in range(n):
+            self.add_executor()
+
+    def provision_release(self, eids: Iterable[str]) -> None:
+        for eid in eids:
+            self.remove_executor(eid)
+
+    def provision_idle(self, now: float, idle_for_s: float) -> list[str]:
+        """Executors eligible for release (called under ``self._lock``)."""
+        return self.dispatcher.idle_executors(now, idle_for_s)
+
+    def exclusive_cache_bytes(self, eids: Iterable[str]) -> int:
+        """Bytes of the tensor storages the executors ``eids`` cache and no
+        other executor does: what removing them gives back to the device,
+        unless something outside the caches also holds those tensors."""
+        eids = set(eids)
+        with self._lock:
+            workers = list(self.workers.values())
+        mine: dict[int, int] = {}
+        others: set[int] = set()
+        for w in workers:
+            with w.lock:
+                payloads = list(w.payloads.values())
+            for p in payloads:
+                if not isinstance(p, torch.Tensor):
+                    continue
+                st = p.untyped_storage()
+                if w.eid in eids:
+                    mine[st.data_ptr()] = st.nbytes()
+                else:
+                    others.add(st.data_ptr())
+        return sum(n for ptr, n in mine.items() if ptr not in others)
 
     # -- data -------------------------------------------------------------------------
     def put_object(self, obj: DataObject, payload: Any) -> None:
@@ -643,6 +698,7 @@ class DiffusionRuntime:
                 # early while the retry is still in flight -- and its input
                 # ledger must not pollute the retry's counters (acc is
                 # dropped here)
+                self.dropped_attempts += 1
                 return
             acc.merge_into(t)
             self.ledger.account_attempt(acc)

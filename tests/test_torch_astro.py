@@ -224,7 +224,6 @@ def test_spec_from_json_loads_reference_spec(tmp_path):
 def test_spec_from_json_refuses_features_the_port_lacks(tmp_path):
     base = _jax_spec(astro.pipeline_spec(2, 2, 2))
     path = tmp_path / "spec.json"
-    JaxExperimentSpec(**{**base.__dict__, "speculation_factor": 2.0}) \
-        .save(path)
-    with pytest.raises(ValueError, match="speculation_factor"):
+    JaxExperimentSpec(**{**base.__dict__, "hosts": 2}).save(path)
+    with pytest.raises(ValueError, match="hosts"):
         convert.spec_from_json(path)

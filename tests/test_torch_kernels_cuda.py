@@ -134,6 +134,46 @@ def test_flat_path_launches_once_per_task(cuda):
         eng.shutdown()
 
 
+def test_elastic_release_gives_device_memory_back(cuda):
+    """The provisioner grows a one-executor pool under a burst of stacking
+    tasks; then every idle executor but one is released, and the card's
+    allocated memory falls by at least the bytes of the storages only
+    those executors cached."""
+    import time
+
+    from repro_torch.apps import astro
+    from repro_torch.experiments import ProvisionerSpec, RuntimeEngine
+
+    prov = ProvisionerSpec(policy="exponential", min_executors=1,
+                           max_executors=8, queue_threshold=1,
+                           idle_timeout_s=60.0, trigger_cooldown_s=0.0,
+                           period_s=0.02)
+    spec = astro.elastic_spec(200, 40, {"kind": "BatchArrivals", "at_s": 0.0},
+                              prov)
+    eng = RuntimeEngine(device="cuda").prepare(spec)
+    try:
+        before = stacking.launches.value
+        rep = eng.run(task_fn=astro.decode_and_stack,
+                      payload_factory=astro.make_tiles, timeout=120.0)
+        torch.cuda.synchronize()
+        rt = eng.runtime
+        assert rep.n_completed == 200 and rep.n_failed == 0
+        assert rep.n_allocated > 0 and len(rt.workers) > 1
+        assert eng.provision_failures == []
+        assert (stacking.launches.value - before
+                == rep.n_completed + rt.dropped_attempts)
+        with rt._lock:
+            idle = rt.provision_idle(time.monotonic(), 0.0)
+        release = idle[:len(idle) - 1]
+        freed = rt.exclusive_cache_bytes(release)
+        allocated = torch.cuda.memory_allocated()
+        rt.provision_release(release)
+        assert len(rt.workers) == 1 and freed > 0
+        assert allocated - torch.cuda.memory_allocated() >= freed
+    finally:
+        eng.shutdown()
+
+
 # --------------------------- flash attention ---------------------------------
 
 FA_CASES = [
