@@ -143,7 +143,18 @@ Phases, each reported on its own lines:
      provisioning action may fail; the first 64 results must match the
      plain version.  Then, with the tasks settled, every idle executor but
      one is released and the card's allocated memory must fall by at
-     least the bytes of the storages only those executors cached.
+     least the bytes of the storages only those executors cached;
+ 12. training llava-next-mistral-7b at its published widths (d_model
+     4096, 32 heads over 8 kv heads of 128, d_ff 14,336, vocab 32,000)
+     through the launcher's code path at phase 7's traffic and optimizer,
+     with the train loop's zero patch embeddings, its depth cut by
+     ``cellrun._depth_variant`` to the most layers whose dry-run peak
+     (``cellrun.run_cell`` on the meta device at this shape, with the plain
+     ``ref`` attention whose memory the flash op's backward holds) is
+     within 0.9 of the card's memory.  The measured peak must be within
+     20% of the dry run's; the flash kernel must launch 2 x layers x 6
+     times, each on tensor cores; the loss must fall by phase 7's rule.
+     One more step runs under torch.profiler for the card's busy share.
 
 Phase 2 runs the stacking kernel at the reference's test shapes and the
 main path's (N=8 and N=32 at 100x100), each beside the launch floor (the
@@ -156,8 +167,8 @@ storage off 16 bytes), the
 serving forward's shape, a long prefill, the training forward's shape
 (4 x 2048), qwen3-moe-30b-a3b's serving shape (D 128, a GQA group of
 8), whisper-base's encoder (8 x 1500, D 64, unmasked) and
-llava-next-mistral-7b's prefill (2 x 1024, D 128, causal), each with the
-kernel it took
+llava-next-mistral-7b's prefill (2 x 1024, D 128, causal) and training
+forward (4 x 2048), each with the kernel it took
 (each case must take the kernel ``kernel_path``'s rule gives it, the main
 shapes the tensor-core one), its TFLOP/s and share of the bound, the host
 cost of each layer of an eager call at the serving shape, and
@@ -268,6 +279,13 @@ ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 4, 447
 ENCDEC_TRAIN_CLIP = float("inf")
 ENCDEC_FP32_DEPTHS = (2, 3, 6)
 VISION_BATCH, VISION_SEQ = 2, 1024
+#: phase 12: llava-next-mistral-7b trained at its published widths at
+#: phase 7's traffic, its 32 layers cut by ``cellrun._depth_variant`` to
+#: the most whose dry-run peak at this shape (``run_cell`` on the meta
+#: device, ``attn_impl="ref"``: the fp32 attention the flash op's backward
+#: recomputes) is within VISION_TRAIN_BUDGET of the card's memory; the
+#: measured peak must be within VISION_PEAK_BAND of the dry run's
+VISION_TRAIN_BUDGET, VISION_PEAK_BAND = 0.9, 0.2
 #: flash cases: (label, B, S, H, KV, D, causal, window, softcap, dtype[,
 #: offset]): the reference's eight (tests/test_kernels.py), cases beyond
 #: them, then the shapes the serving and training paths give the kernel at
@@ -314,11 +332,13 @@ FLASH_CASES = [
     ("main/encoder whisper-base", 8, 1500, 8, 8, 64, False, 0, 0.0,
      "bfloat16"),
     ("main/prefill llava", 2, 1024, 32, 8, 128, True, 0, 0.0, "bfloat16"),
+    # phase 12: llava's training forward (4 x 2048, causal, no window)
+    ("main/train llava", 4, 2048, 32, 8, 128, True, 0, 0.0, "bfloat16"),
 ]
 #: the main path's flash cases: each must take the tensor-core kernel
 FLASH_MAIN = ("main/serve", "main/prefill", "main/train",
               "main/serve qwen3-moe", "main/encoder whisper-base",
-              "main/prefill llava")
+              "main/prefill llava", "main/train llava")
 #: query rows per chunk of the plain version at long lengths (bounds its
 #: (Sq, Sk) score tensor)
 FLASH_PLAIN_Q_CHUNK = 1024
@@ -1645,20 +1665,25 @@ TRAIN_KERNEL_KINDS = {
 }
 
 
-def _profile_train(step_fn, state, pipeline, start: int, steps: int = 2):
-    """``steps`` more train steps under torch.profiler (batches fetched
-    before it starts): host wall per step, card busy time per step (the
-    sum of its kernels' times), the flash kernel's share, and the kernels
-    that take the most card time."""
+def _profile_train(cfg, step_fn, state, pipeline, start: int,
+                   steps: int = 2):
+    """``steps`` more train steps of ``cfg`` under torch.profiler (batches
+    fetched, with the train loop's frontend stubs, before it starts): host
+    wall per step, card busy time per step (the sum of its kernels'
+    times), the flash kernel's share, and the kernels that take the most
+    card time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.train.loop import train_batch
+
     batches = [pipeline.fetch_step(start + i) for i in range(steps)]
+    batches = [train_batch(cfg, t) for t in batches]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for tokens in batches:
-            state, metrics = step_fn(state, {"tokens": tokens})
+        for batch in batches:
+            state, metrics = step_fn(state, batch)
             float(metrics["loss"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps
@@ -1860,7 +1885,7 @@ def phase_train() -> dict:
         flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ + 1)
         mfu = flops / (step_ms * 1e-3) / BF16_OPS_PER_S
         step_fn = make_train_step(cfg, opt)
-        state, prof = _profile_train(step_fn, result.state, pipeline,
+        state, prof = _profile_train(cfg, step_fn, result.state, pipeline,
                                      TRAIN_STEPS)
         del result
         log(f"[train] 2 train steps profiled ({card}): wall "
@@ -3529,6 +3554,189 @@ def phase_elastic(card: str) -> dict:
         eng.shutdown()
 
 
+# --------------------------------------------------------------------------
+# phase 12: llava-next-mistral-7b trained at the depth the dry run picks
+# --------------------------------------------------------------------------
+
+def _vision_train_depth(full, shape, memory: int) -> dict:
+    """The dry run's choice of depth for training ``full`` at ``shape``:
+    ``run_cell`` on the meta device at the depths of its own fit
+    (``FIT_DEPTHS``) of the plain ``ref`` attention, and the largest depth
+    whose peak is within VISION_TRAIN_BUDGET of ``memory``.  Every term of
+    the cell is linear in the depth (argument bytes exactly so: each block
+    adds the same parameters and state; FLOPs, output and temp bytes by
+    ``run_cell``'s own fit), so the two runs give the prediction at that
+    depth, the peak the card is held to."""
+    from repro_torch.launch.cellrun import FIT_DEPTHS, _depth_variant, run_cell
+    from repro_torch.launch.mesh import make_card_mesh
+
+    ref = full.with_(attn_impl="ref")
+    mesh = make_card_mesh()
+    t0 = time.monotonic()
+    (d1, d2), runs = FIT_DEPTHS, [
+        run_cell(_depth_variant(ref, d), shape, mesh, "one_card",
+                 verbose=False).to_dict() for d in FIT_DEPTHS]
+    for r in runs:
+        if not r["ok"]:
+            raise AssertionError(f"vision train: dry run failed: {r['error']}")
+    terms = ("per_device_flops", "argument_bytes", "output_bytes",
+             "temp_bytes", "peak_bytes_per_device")
+
+    def at(k: int) -> dict:
+        return {t: runs[0][t] + (runs[1][t] - runs[0][t]) * (k - d1)
+                / (d2 - d1) for t in terms}
+    budget = VISION_TRAIN_BUDGET * memory
+    fitting = [k for k in range(1, full.n_blocks + 1)
+               if at(k)["peak_bytes_per_device"] <= budget]
+    if not fitting:
+        raise AssertionError(f"vision train: not one block of {full.name} "
+                             f"fits {budget / 1e9:.1f} GB at {shape}")
+    k = max(fitting)
+    return {"k": k, "prediction": at(k), "depths": FIT_DEPTHS, "runs": runs,
+            "peak_per_block_bytes": (at(2)["peak_bytes_per_device"]
+                                     - at(1)["peak_bytes_per_device"]),
+            "budget_bytes": budget, "seconds": time.monotonic() - t0}
+
+
+def phase_vision_train(card: str) -> dict:
+    """Phase 12: llava-next-mistral-7b trained at its published widths,
+    its depth the dry run's choice, the flash kernel in every attention
+    forward."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.cellrun import _depth_variant
+    from repro_torch.models.model import make_train_step
+    from repro_torch.train import adamw, train
+
+    dev = torch.device("cuda", 0)
+    full = get_config(VISION_ARCH).with_(attn_impl="flash")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    memory = torch.cuda.get_device_properties(dev).total_memory
+    shape = ShapeSpec("train_4x2048", TRAIN_SEQ + 1, TRAIN_BATCH, "train")
+    embed = 2 * full.vocab_size * full.d_model
+    per_layer = (full.param_count() - embed) // full.n_layers
+    reckon = {n: 12 * (embed + n * per_layer) for n in (16, 20, 24, 32)}
+    log(f"[vision-train] {full.name} at its published widths: d_model "
+        f"{full.d_model}, {full.n_heads} heads over {full.n_kv_heads} kv "
+        f"heads of {full.head_dim_}, d_ff {full.d_ff}, vocab "
+        f"{full.vocab_size}, {full.num_frontend_tokens} zero patch "
+        f"embeddings at offset {full.frontend_offset} (the train loop's "
+        f"stub); {per_layer:,} parameters a layer, {embed:,} in the "
+        f"embeddings; 12 B of state a parameter (bf16 weight and gradient, "
+        f"fp32 AdamW m and v): "
+        + ", ".join(f"{n} layers {b / 1e9:.1f} GB" for n, b in reckon.items())
+        + f"; the card {memory / 1e9:.2f} GB ({held / 2**30:.3f} GiB held "
+        f"from earlier phases)")
+    dry = _vision_train_depth(full, shape, memory)
+    k, pred = dry["k"], dry["prediction"]
+    cfg = _depth_variant(full, k)
+    log(f"[vision-train] dry run (meta device, attn ref, {shape.global_batch}"
+        f" x {shape.seq_len}, remat {full.remat}): peak "
+        + ", ".join(f"{r['peak_bytes_per_device'] / 1e9:.2f} GB at {d} "
+                    f"layers" for d, r in zip(dry["depths"], dry["runs"]))
+        + f" ({dry['peak_per_block_bytes'] / 1e9:.3f} GB a layer); the most "
+        f"layers within {VISION_TRAIN_BUDGET} of the card "
+        f"({dry['budget_bytes'] / 1e9:.2f} GB): k = {k}; predicted at k: "
+        f"argument {pred['argument_bytes'] / 1e9:.2f} GB, temp "
+        f"{pred['temp_bytes'] / 1e9:.2f} GB, peak "
+        f"{pred['peak_bytes_per_device'] / 1e9:.2f} GB, "
+        f"{pred['per_device_flops'] / 1e12:.1f} TFLOP a step (products, "
+        f"remat recompute included); meta passes {dry['seconds']:.1f}s")
+    opt = adamw(TRAIN_LR, warmup=TRAIN_WARMUP, total=TRAIN_TOTAL)
+    pipeline = launch.make_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_HOSTS,
+                                    SERVE_POLICY, 64, TRAIN_SHARDS,
+                                    TRAIN_SEED, dev)
+    failures = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.monotonic()
+        result = train(cfg, pipeline, TRAIN_STEPS, optimizer=opt,
+                       seed=TRAIN_SEED, log_every=1, log=log, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        counts = _read_launches()
+        peak = torch.cuda.max_memory_allocated() - held
+        for line in launch.report(result, cfg, TRAIN_BATCH, TRAIN_SEQ, dev,
+                                  peak + held):
+            log(line)
+        miss = pred["peak_bytes_per_device"] / peak - 1
+        log(f"[vision-train] peak device memory of the run {peak / 1e9:.2f} "
+            f"GB (torch.cuda.max_memory_allocated less the "
+            f"{held / 1e9:.3f} GB held before it); the dry run's "
+            f"{pred['peak_bytes_per_device'] / 1e9:.2f} GB misses it by "
+            f"{miss:+.3f} (band +-{VISION_PEAK_BAND})")
+        if abs(miss) > VISION_PEAK_BAND:
+            failures.append(f"the dry run's peak misses the card's by "
+                            f"{miss:+.3f}")
+        n_flash = 2 * cfg.n_layers * TRAIN_STEPS
+        expected = dict.fromkeys(counts, 0)
+        expected.update({"flash_attention": n_flash,
+                         "flash_attention/wgmma": n_flash})
+        log(f"[vision-train] launches {_nonzero(counts)} (flash_attention: "
+            f"2 x layers x steps = 2 x {cfg.n_layers} x {TRAIN_STEPS} = "
+            f"{n_flash}, the forward and the remat recompute, all on tensor "
+            f"cores)")
+        if counts != expected:
+            failures.append(f"launches {counts}, expected {expected}")
+        losses = result.losses
+        fell = _loss_fell(cfg, result.state.params, pipeline, TRAIN_STEPS,
+                          TRAIN_SEED, dev)
+        log(f"[vision-train] losses {', '.join(f'{x:.4f}' for x in losses)};"
+            f" mean loss over the run's {TRAIN_STEPS} batches at the initial "
+            f"weights {fell['before']:.4f}, at the trained ones "
+            f"{fell['after']:.4f} (must fall)")
+        if not (all(np.isfinite(losses)) and fell["fell"]):
+            failures.append(f"the loss did not fall ({fell['before']} -> "
+                            f"{fell['after']} on the run's batches)")
+        step_seconds = result.step_seconds
+        step_ms = statistics.median(step_seconds[1:]) * 1e3
+        flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ + 1)
+        step_fn = make_train_step(cfg, opt)
+        state, prof = _profile_train(cfg, step_fn, result.state, pipeline,
+                                     TRAIN_STEPS, steps=1)
+        del result, state
+        log(f"[vision-train] 1 train step profiled ({card}): wall "
+            f"{prof['wall_ms_per_step']:.1f} ms, card busy "
+            f"{prof['busy_ms_per_step']:.1f} ms ({prof['busy_share']:.3f} of "
+            f"the wall), {prof['kernels_per_step']:.0f} kernels; by kind: "
+            + ", ".join(f"{k} {ms:.2f} ms" for k, ms in
+                        prof["ms_per_step_by_kind"].items())
+            + "; top: "
+            + "; ".join(f"{k} {ms:.2f} ms" for k, ms in prof["top"]))
+    finally:
+        pipeline.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens_per_step = TRAIN_BATCH * (TRAIN_SEQ + 1)
+    log(f"[vision-train] on {card}: {step_ms:.1f} ms per step (median of "
+        f"steps 2-{TRAIN_STEPS}), {tokens_per_step / (step_ms * 1e-3):.0f} "
+        f"tokens/s at {k} of {full.n_layers} layers; model FLOPs "
+        f"{flops:.4g} a step, {flops / (step_ms * 1e-3) / BF16_OPS_PER_S:.3f}"
+        f" of the card's {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 peak; card"
+        f" busy {prof['busy_share']:.3f}; peak {peak / 1e9:.2f} GB "
+        f"(predicted {pred['peak_bytes_per_device'] / 1e9:.2f}); train wall "
+        f"{wall_s:.1f}s for {TRAIN_STEPS} steps")
+    if failures:
+        raise AssertionError("vision train: " + "; ".join(failures))
+    return {"arch": cfg.name, "layers": k, "layers_published": full.n_layers,
+            "params": cfg.param_count(), "state_bytes_reckoned": reckon,
+            "dry_run": dry, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ + 1,
+            "steps": TRAIN_STEPS, "losses": losses, "loss_on_batches": fell,
+            "step_ms": step_ms,
+            "step_ms_all": [t * 1e3 for t in step_seconds],
+            "tokens_per_s": tokens_per_step / (step_ms * 1e-3),
+            "model_flops_per_step": flops, "peak_memory_bytes": peak,
+            "peak_predicted_bytes": pred["peak_bytes_per_device"],
+            "peak_miss": miss, "held_before_bytes": held, "wall_s": wall_s,
+            "launches": counts["flash_attention"],
+            "launches_wgmma": counts["flash_attention/wgmma"],
+            "launches_all": counts, "profile": prof, "card": card}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--json", type=Path, default=None,
@@ -3556,6 +3764,7 @@ def main(argv=None) -> int:
     ssm_trained = phase_ssm_train()
     encdec = phase_encdec()
     elastic = phase_elastic(env["nvidia_smi"])
+    vision = phase_vision_train(env["nvidia_smi"])
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
@@ -3591,6 +3800,7 @@ def main(argv=None) -> int:
     fa_moe = fa_rows["main/serve qwen3-moe"]
     fa_encoder = fa_rows["main/encoder whisper-base"]
     fa_llava = fa_rows["main/prefill llava"]
+    fa_llava_train = fa_rows["main/train llava"]
     launches_encdec = (
         encdec["whisper"]["launches_encoder"]["flash_attention"]
         + encdec["whisper"]["launches"]["flash_attention"]
@@ -3609,20 +3819,23 @@ def main(argv=None) -> int:
         "launches": (serve["launches"] + trained["launches"]
                      + moe["serve"]["launches"]
                      + launches_hybrid["flash_attention"]
-                     + moe["train"]["launches"] + launches_encdec),
+                     + moe["train"]["launches"] + launches_encdec
+                     + vision["launches"]),
         "launches_serve": serve["launches"],
         "launches_train": trained["launches"],
         "launches_moe_serve": moe["serve"]["launches"],
         "launches_hybrid": launches_hybrid["flash_attention"],
         "launches_moe_train": moe["train"]["launches"],
         "launches_encdec": launches_encdec,
+        "launches_vision_train": vision["launches"],
         "launches_wgmma": (serve["launches_wgmma"]
                            + trained["launches_wgmma"]
                            + moe["serve"]["launches_wgmma"]
                            + launches_hybrid["flash_attention/wgmma"]
                            + moe["train"]["launches_all"][
                                "flash_attention/wgmma"]
-                           + launches_encdec),
+                           + launches_encdec
+                           + vision["launches_wgmma"]),
         "path": fa_main["path"],
         "shape": fa_main["shape"],
         "max_abs_err": max(fa_main["max_abs_err"], fa_prefill["max_abs_err"]),
@@ -3652,6 +3865,10 @@ def main(argv=None) -> int:
             "host_ms", "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
             "sdpa_flag_ms", "tflops")},
         "prefill_llava": {k: fa_llava[k] for k in (
+            "path", "shape", "causal", "max_abs_err", "ms", "plain_ms",
+            "host_ms", "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
+            "sdpa_flag_ms", "tflops")},
+        "train_llava": {k: fa_llava_train[k] for k in (
             "path", "shape", "causal", "max_abs_err", "ms", "plain_ms",
             "host_ms", "bound_ms", "bound_by", "library_ms", "sdpa_mask_ms",
             "sdpa_flag_ms", "tflops")},
@@ -3697,7 +3914,7 @@ def main(argv=None) -> int:
             {"env": env, "kernels": kernels, "flat": flat, "pipeline": pipe,
              "serve": serve, "ssm_serve": ssm, "train": trained,
              "moe": moe, "ssm_train": ssm_trained, "encdec": encdec,
-             "elastic": elastic,
+             "elastic": elastic, "vision_train": vision,
              "kernels_line": line,
              "seconds": time.monotonic() - t_start},
             indent=2, default=str) + "\n")

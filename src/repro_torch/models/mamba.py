@@ -18,7 +18,8 @@ Shapes (per layer): d_inner = expand * d_model, N = d_state, R = dt_rank.
   dt_proj  (R, d_inner)       A_log   (d_inner, N)      D      (d_inner,)
   out_proj (d_inner, D)
 
-Left out: the ``rules``/``shard`` arguments (one card, no mesh).
+Left out: the ``rules``/``shard`` arguments of the layers (one card, no
+mesh); the leaves' logical axes are :data:`MAMBA_LOGICAL`.
 """
 from __future__ import annotations
 
@@ -45,6 +46,21 @@ def mamba_param_shapes(d_model: int, d_inner: int, d_state: int,
         "D": (d_inner,),
         "out_proj": (d_inner, d_model),
     }
+
+
+#: each leaf's logical sharding axes (the reference's, from its
+#: ``mamba_param_shapes``)
+MAMBA_LOGICAL = {
+    "in_proj": ("fsdp", "tp"),
+    "conv_w": (None, "tp_fsdp"),
+    "conv_b": ("tp_fsdp",),
+    "x_proj": ("tp_fsdp", None),
+    "dt_proj": (None, "tp_fsdp"),
+    "dt_bias": ("tp_fsdp",),
+    "A_log": ("tp_fsdp", None),
+    "D": ("tp_fsdp",),
+    "out_proj": ("tp", "fsdp"),
+}
 
 
 def mamba_block(x: torch.Tensor, p: dict,

@@ -15,8 +15,9 @@ einsum formulation: the plain version that ``moe_block`` is held against.
 The expert products run as batched matmuls over (experts, capacity, ·):
 the reference has no Pallas kernel here.
 
-Left out: the mesh (``moe_block_sharded`` keeps only its no-mesh fallback),
-the ``rules``/``shard`` arguments and the logical axes of the parameters.
+Left out: the mesh (``moe_block_sharded`` keeps only its no-mesh fallback)
+and the ``rules``/``shard`` arguments of the layer; the leaves' logical
+axes are :data:`MOE_LOGICAL`.
 """
 from __future__ import annotations
 
@@ -38,6 +39,16 @@ def moe_param_shapes(d_model: int, d_ff: int, n_experts: int,
     if gated:
         shapes["w_gate"] = (n_experts, d_model, d_ff)
     return shapes
+
+
+#: each leaf's logical sharding axes (the reference's, from its
+#: ``moe_param_shapes``)
+MOE_LOGICAL = {
+    "w_router": (None, None),
+    "w_up": ("expert", "fsdp", "tp"),
+    "w_down": ("expert", "tp", "fsdp"),
+    "w_gate": ("expert", "fsdp", "tp"),
+}
 
 
 def capacity(n_tokens: int, n_experts: int, top_k: int,

@@ -26,8 +26,13 @@ token embeddings at ``cfg.frontend_offset``), the encoder-decoder
 precomputed frame embeddings (``frame_embeds``), and a decoder can take
 its input embeddings whole (``inputs_embeds``).
 
-Left out, for the parallel slice (``ROADMAP.md``): logical sharding axes
-and ``abstract_params``.
+Each leaf carries the reference's logical sharding axes
+(``ParamDef.logical``, read by :func:`param_logical`; the cache's by
+:func:`cache_logical`), and :func:`abstract_params` gives the tree as
+``meta`` tensors, which the dry run (``repro_torch.launch.cellrun``) runs
+the step on without allocating.  The entry points take the reference's
+``rules`` argument: on one card nothing is sharded, so it is not read
+(``takes_rules`` checks its type).
 """
 from __future__ import annotations
 
@@ -40,9 +45,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import layers as L
+from repro_torch.parallel.sharding import LogicalRules, takes_rules
+
 from .config import LayerSpec, ModelConfig
-from .mamba import mamba_block, mamba_decode, mamba_param_shapes
-from .moe import moe_block_sharded, moe_param_shapes
+from .mamba import MAMBA_LOGICAL, mamba_block, mamba_decode, mamba_param_shapes
+from .moe import MOE_LOGICAL, moe_block_sharded, moe_param_shapes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -55,6 +62,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 class ParamDef(NamedTuple):
     shape: tuple[int, ...]
+    logical: tuple[Optional[str], ...]
     init: str = "normal"      # normal | zeros | ones
     dtype: str = "param"      # param (cfg.dtype) | float32
 
@@ -66,28 +74,29 @@ class ParamDef(NamedTuple):
 def _attn_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     return {
-        "wq": ParamDef((D, H, dh)),
-        "wk": ParamDef((D, KV, dh)),
-        "wv": ParamDef((D, KV, dh)),
-        "wo": ParamDef((H, dh, D)),
+        "wq": ParamDef((D, H, dh), ("fsdp", "tp", None)),
+        "wk": ParamDef((D, KV, dh), ("fsdp", "tp", None)),
+        "wv": ParamDef((D, KV, dh), ("fsdp", "tp", None)),
+        "wo": ParamDef((H, dh, D), ("tp", None, "fsdp")),
     }
 
 
 def _mlp_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     D, F = cfg.d_model, cfg.d_ff
-    defs = {"w_up": ParamDef((D, F)), "w_down": ParamDef((F, D))}
+    defs = {"w_up": ParamDef((D, F), ("fsdp", "tp")),
+            "w_down": ParamDef((F, D), ("tp", "fsdp"))}
     if cfg.gated_mlp:
-        defs["w_gate"] = ParamDef((D, F))
+        defs["w_gate"] = ParamDef((D, F), ("fsdp", "tp"))
     return defs
 
 
 def _norm_defs(cfg: ModelConfig, name: str) -> dict[str, ParamDef]:
     D = cfg.d_model
     if cfg.norm == "layer":
-        return {f"{name}_scale": ParamDef((D,), "ones", "float32"),
-                f"{name}_bias": ParamDef((D,), "zeros", "float32")}
+        return {f"{name}_scale": ParamDef((D,), (None,), "ones", "float32"),
+                f"{name}_bias": ParamDef((D,), (None,), "zeros", "float32")}
     init = "zeros" if cfg.rms_plus_one else "ones"
-    return {f"{name}_scale": ParamDef((D,), init, "float32")}
+    return {f"{name}_scale": ParamDef((D,), (None,), init, "float32")}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -106,7 +115,8 @@ _MAMBA_ZEROS = ("dt_bias", "conv_b", "D")
 def _mamba_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     shapes = mamba_param_shapes(cfg.d_model, cfg.d_inner, cfg.ssm_state,
                                 cfg.ssm_conv, cfg.dt_rank)
-    return {k: ParamDef(shape, "zeros" if k in _MAMBA_ZEROS else "normal",
+    return {k: ParamDef(shape, MAMBA_LOGICAL[k],
+                        "zeros" if k in _MAMBA_ZEROS else "normal",
                         "float32" if k in _MAMBA_FP32 else "param")
             for k, shape in shapes.items()}
 
@@ -114,7 +124,7 @@ def _mamba_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
 def _moe_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     shapes = moe_param_shapes(cfg.d_model, cfg.d_ff, cfg.n_experts,
                               cfg.gated_mlp)
-    return {k: ParamDef(shape, "normal",
+    return {k: ParamDef(shape, MOE_LOGICAL[k], "normal",
                         "float32" if k == "w_router" else "param")
             for k, shape in shapes.items()}
 
@@ -140,7 +150,8 @@ def _sub_defs(cfg: ModelConfig, spec: LayerSpec) -> dict[str, ParamDef]:
 
 
 def _stack(defs: dict[str, ParamDef], n: int) -> dict[str, ParamDef]:
-    return {k: ParamDef((n,) + d.shape, d.init, d.dtype)
+    return {k: ParamDef((n,) + d.shape, ("layers",) + d.logical, d.init,
+                        d.dtype)
             for k, d in defs.items()}
 
 
@@ -149,15 +160,16 @@ def param_defs(cfg: ModelConfig) -> dict[str, Any]:
     _check_supported(cfg)
     V, D = cfg.vocab_size, cfg.d_model
     defs: dict[str, Any] = {
-        "embed": ParamDef((V, D)),
+        "embed": ParamDef((V, D), ("tp", "fsdp")),
         "blocks": {f"sub{i}": _stack(_sub_defs(cfg, spec), cfg.n_blocks)
                    for i, spec in enumerate(cfg.pattern)},
     }
     defs.update(_norm_defs(cfg, "final"))
     if not cfg.tie_embeddings:
-        defs["unembed"] = ParamDef((V, D))
+        defs["unembed"] = ParamDef((V, D), ("tp", "fsdp"))
     if not cfg.use_rope and cfg.max_learned_pos > 0:
-        defs["pos_embed"] = ParamDef((cfg.max_learned_pos, D))
+        defs["pos_embed"] = ParamDef((cfg.max_learned_pos, D),
+                                     (None, "fsdp"))
     if cfg.is_encdec:
         enc_sub: dict[str, ParamDef] = {}
         enc_sub.update(_norm_defs(cfg, "ln1"))
@@ -206,7 +218,7 @@ def _materialize(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
     one layer slice at a time into its final-dtype tensor, so the fp32
     draw never holds more than one layer (qwen3-moe-30b-a3b's whole
     w_up stack is 38.7 GB in fp32)."""
-    dtype = torch.float32 if d.dtype == "float32" else torch_dtype(cfg.dtype)
+    dtype = _leaf_dtype(d, cfg)
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
@@ -243,6 +255,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         (path, _materialize(d, cfg, generator, dev,
                             stacked=path.split("/")[0] in _STACKED_ROOTS))
         for path, d in flatten(param_defs(cfg)))
+
+
+def _leaf_dtype(d: ParamDef, cfg: ModelConfig) -> torch.dtype:
+    return torch.float32 if d.dtype == "float32" else torch_dtype(cfg.dtype)
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors of the leaves' shapes and
+    dtypes: what the dry run runs a step on (nothing is allocated)."""
+    return unflatten((path, torch.empty(d.shape, dtype=_leaf_dtype(d, cfg),
+                                        device="meta"))
+                     for path, d in flatten(param_defs(cfg)))
+
+
+def param_logical(cfg: ModelConfig) -> dict:
+    """Each parameter leaf's logical sharding axes, in the tree's shape."""
+    return unflatten((path, d.logical)
+                     for path, d in flatten(param_defs(cfg)))
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +402,9 @@ def _remat(cfg: ModelConfig) -> Optional[dict]:
                      f"or dots)")
 
 
-def forward_lm_hidden(cfg: ModelConfig, params, batch: dict
+@takes_rules
+def forward_lm_hidden(cfg: ModelConfig, params, batch: dict,
+                      rules: Optional[LogicalRules] = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward up to the final norm (no unembed): the chunked loss's input.
     Returns (hidden (B,S,D), aux scalar)."""
@@ -382,7 +414,9 @@ def forward_lm_hidden(cfg: ModelConfig, params, batch: dict
     return _norm(cfg, x, params, "final"), aux
 
 
-def embed_inputs(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
+@takes_rules
+def embed_inputs(cfg: ModelConfig, params, batch: dict,
+                 rules: Optional[LogicalRules] = None) -> torch.Tensor:
     """tokens (+ the stub frontend's embeddings) -> (B, S, D) residual
     stream: ``inputs_embeds`` (B, S, D) replace the token embeddings;
     ``image_embeds`` (B, T, D) overwrite T of them from
@@ -419,7 +453,9 @@ def _unembed(cfg: ModelConfig, params, x) -> torch.Tensor:
     return L.unembed(x, table, cfg.final_softcap)
 
 
+@takes_rules
 def forward_lm(cfg: ModelConfig, params, tokens: torch.Tensor,
+               rules: Optional[LogicalRules] = None,
                image_embeds: Optional[torch.Tensor] = None,
                inputs_embeds: Optional[torch.Tensor] = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -449,8 +485,9 @@ def _sinusoid(S: int, D: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
-def encode(cfg: ModelConfig, params, frame_embeds: torch.Tensor
-           ) -> torch.Tensor:
+@takes_rules
+def encode(cfg: ModelConfig, params, frame_embeds: torch.Tensor,
+           rules: Optional[LogicalRules] = None) -> torch.Tensor:
     """frame_embeds (B, S_enc, D) -> the encoder's output (B, S_enc, D):
     sinusoid positions, then ``cfg.enc_layers`` blocks of unmasked
     self-attention (through ``cfg.attn_impl``) and a dense MLP, then the
@@ -490,8 +527,10 @@ def _cross_params(cross_p: dict) -> dict:
     return {k[2:]: v for k, v in cross_p.items() if k.startswith("x_")}
 
 
+@takes_rules
 def forward_encdec_hidden(cfg: ModelConfig, params, frame_embeds,
-                          dec_tokens) -> tuple[torch.Tensor, torch.Tensor]:
+                          dec_tokens, rules: Optional[LogicalRules] = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Encoder, then the decoder up to its final norm (the chunked loss's
     input).  Returns (hidden (B,S_dec,D), aux 0)."""
     enc = encode(cfg, params, frame_embeds)
@@ -509,8 +548,10 @@ def _decoder_hidden(cfg: ModelConfig, params, enc, dec_tokens):
     return _norm(cfg, x, params, "final"), aux
 
 
+@takes_rules
 def decode_train(cfg: ModelConfig, params, enc: torch.Tensor,
-                 dec_tokens: torch.Tensor
+                 dec_tokens: torch.Tensor,
+                 rules: Optional[LogicalRules] = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The decoder over ``dec_tokens`` (B, S_dec) against the encoder's
     output: (logits (B,S_dec,V) fp32, aux 0)."""
@@ -518,8 +559,10 @@ def decode_train(cfg: ModelConfig, params, enc: torch.Tensor,
     return _unembed(cfg, params, x), aux
 
 
+@takes_rules
 def forward_encdec(cfg: ModelConfig, params, frame_embeds: torch.Tensor,
-                   dec_tokens: torch.Tensor
+                   dec_tokens: torch.Tensor,
+                   rules: Optional[LogicalRules] = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """frame_embeds (B, S_enc, D), dec_tokens (B, S_dec) -> (logits
     (B,S_dec,V) fp32, aux 0)."""
@@ -559,8 +602,23 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return cache
 
 
+def cache_logical(cfg: ModelConfig) -> dict:
+    """Logical axes tree matching :func:`init_cache`'s output."""
+    out: dict[str, Any] = {}
+    for i, spec in enumerate(cfg.pattern):
+        if spec.kind == "attn":
+            out[f"sub{i}"] = {"k": (None, "batch", "kv_seq", None, None),
+                              "v": (None, "batch", "kv_seq", None, None)}
+        else:
+            out[f"sub{i}"] = {"conv": (None, "batch", None, "tp"),
+                              "ssm": (None, "batch", "tp", None)}
+    return out
+
+
+@takes_rules
 def decode_step_lm(cfg: ModelConfig, params, cache, token: torch.Tensor,
-                   pos: int) -> tuple[torch.Tensor, Any]:
+                   pos: int, rules: Optional[LogicalRules] = None
+                   ) -> tuple[torch.Tensor, Any]:
     """One-token serve step: token (B, 1) at absolute position ``pos`` (a
     host integer).  Returns (logits (B,1,V), cache); the cache is updated
     in place."""
@@ -616,8 +674,10 @@ def _embed_at(cfg: ModelConfig, params, token: torch.Tensor, pos: int):
     return x
 
 
+@takes_rules
 def decode_step_encdec(cfg: ModelConfig, params, cache, enc: torch.Tensor,
-                       token: torch.Tensor, pos: int
+                       token: torch.Tensor, pos: int,
+                       rules: Optional[LogicalRules] = None
                        ) -> tuple[torch.Tensor, Any]:
     """Whisper's one-token decode step: token (B, 1) at ``pos`` (a host
     integer), the self-attention cache updated in place, cross-attention

@@ -113,6 +113,22 @@ class Optimizer:
             delta = delta + self.weight_decay * p.float()
         p.copy_(p.float() - lr * delta)
 
+    # ------------------------------------------------------------------
+    def state_logical(self, params_logical: PyTree) -> "TrainState":
+        """Logical axes for TrainState given the params' logical tree
+        (m like params; factored v drops the last / second-to-last axis)."""
+        def v_logical(lg):
+            if self.factored and len(lg) >= 2:
+                return (lg[:-1], lg[:-2] + lg[-1:])
+            return lg
+        return TrainState(
+            step=(),
+            params=params_logical,
+            m=params_logical,
+            v=unflatten((k, v_logical(lg))
+                        for k, lg in flatten(params_logical)),
+        )
+
 
 def _zeros(shape, like: torch.Tensor) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.float32, device=like.device)

@@ -279,3 +279,104 @@ def test_default_device_without_cuda_raises():
         pytest.skip("this machine has a CUDA card")
     with pytest.raises(RuntimeError, match="cuda"):
         PtRuntime(n_executors=1)
+
+
+# --------------------------------------------------------------------------
+# Executors removed under load (tests/test_workloads.py's regressions)
+# --------------------------------------------------------------------------
+
+def test_runtime_survives_executor_removal_mid_workload():
+    """An executor removed mid-workload must not double-complete its
+    in-flight task (the retry is the only completion that counts), or
+    wait() hangs."""
+    from repro_torch.workloads import PoissonArrivals, UniformScan, generate
+    for trial in range(3):
+        wl = generate("fault", PoissonArrivals(500.0), UniformScan(),
+                      n_tasks=60, n_objects=6, object_bytes=64, seed=trial)
+        rt = PtRuntime(n_executors=3, policy=PtPolicy.MAX_COMPUTE_UTIL,
+                       device="cpu")
+        th = rt.submit_workload(
+            wl, task_fn=lambda inputs: sum(len(v) for v in inputs.values()),
+            payload_factory=lambda ob: np.full(64, ord("y"), np.uint8),
+            time_scale=0.005)
+        rt.remove_executor("w1", failed=True)
+        th.join(30.0)
+        assert not th.is_alive()
+        assert rt.wait(30.0), "wait() hung after mid-run executor removal"
+        assert len(rt.dispatcher.completed) + len(rt.dispatcher.failed) == 60
+        assert rt._outstanding == 0
+        rt.shutdown()
+
+
+def test_runtime_terminal_failure_on_removed_worker_does_not_leak_wait():
+    """A last-attempt task running on a removed worker goes terminally
+    FAILED (no retry); wait() must still drain to zero."""
+    import time
+
+    rt = PtRuntime(n_executors=1, device="cpu")
+    rt.put_object(pt_objects.DataObject("a", 4), np.zeros(4, np.uint8))
+    t = pt_objects.Task(inputs=("a",), fn=lambda inputs: time.sleep(0.5) or 1,
+                        max_attempts=1)
+    rt.submit([t])
+    time.sleep(0.1)                          # the task is running on w0
+    rt.remove_executor("w0", failed=True)
+    assert rt.wait(10.0), "wait() leaked after terminal in-flight failure"
+    assert rt._outstanding == 0
+    assert len(rt.dispatcher.failed) == 1
+    rt.shutdown()
+
+
+def test_runtime_executor_ids_never_reused():
+    """add after remove mints a fresh id: reusing f"w{len(workers)}" would
+    overwrite a live worker and lose its task."""
+    rt = PtRuntime(n_executors=3, device="cpu")
+    rt.remove_executor("w1")
+    assert rt.add_executor() == "w3"
+    assert sorted(rt.workers) == ["w0", "w2", "w3"]
+    rt.shutdown()
+
+
+def _release_while_running(Runtime, objects, **kw):
+    """Two executors; one slow task on one of them, which is released (not
+    failed) while the task runs.  Returns (runtime, task) after wait()."""
+    import time
+
+    rt = Runtime(n_executors=2, **kw)
+    rt.put_object(objects.DataObject("a", 64),
+                  np.arange(16, dtype=np.float32))
+    t = objects.Task(inputs=("a",),
+                     fn=lambda inputs: time.sleep(0.3) or float(
+                         inputs["a"].sum()))
+    rt.submit([t])
+    deadline = time.monotonic() + 10.0
+    running = []
+    while not running and time.monotonic() < deadline:
+        time.sleep(0.01)
+        with rt._lock:
+            running = [e for e, st in rt.dispatcher.executors.items()
+                       if t.tid in st.running]
+    assert running, "the task never started"
+    rt.remove_executor(running[0])
+    assert rt.wait(10.0)
+    return rt, t
+
+
+def test_runtime_release_while_a_task_runs_retries_it_once():
+    """An executor released while its task runs: the task is re-queued and
+    its retry completes elsewhere; the released attempt's outcome is
+    dropped (``dropped_attempts``) and the result is the reference's."""
+    import time
+
+    rt, t = _release_while_running(PtRuntime, pt_objects, device="cpu")
+    deadline = time.monotonic() + 10.0
+    while rt.dropped_attempts < 1 and time.monotonic() < deadline:
+        time.sleep(0.01)     # the released attempt runs on to its end
+    assert len(rt.dispatcher.completed) == 1
+    assert len(rt.dispatcher.failed) == 0
+    assert rt.dropped_attempts == 1
+    assert rt._outstanding == 0
+    jrt, jt = _release_while_running(JaxRuntime, jax_objects)
+    assert t.result == jt.result == float(np.arange(16).sum())
+    assert t.attempts == jt.attempts
+    rt.shutdown()
+    jrt.shutdown()

@@ -58,3 +58,19 @@ def test_scan_catches_forbidden_imports():
     for line in ("import repro_torch", "from repro_torch.core import x",
                  "import jaxlib_free_module", "from repro_torch import convert"):
         assert not FORBIDDEN.search(line), line
+
+
+def test_dry_run_modules_load_no_jax():
+    """The dry run's tools (the FLOP counter, the dispatch-mode storage
+    tracker) pull nothing of JAX in: a fresh interpreter that imports the
+    dry run and the cell runner holds no ``jax`` module."""
+    code = ("import json, sys\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.cellrun\n"
+            "print(json.dumps(sorted(m for m in sys.modules\n"
+            "                        if m == 'jax' or m.startswith('jax.')\n"
+            "                        or m == 'repro' or m.startswith('repro.'))))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

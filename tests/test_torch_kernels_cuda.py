@@ -174,6 +174,58 @@ def test_elastic_release_gives_device_memory_back(cuda):
         eng.shutdown()
 
 
+def test_release_while_a_stacking_task_runs_reruns_it(cuda):
+    """An executor released while its stacking task runs: the dispatcher
+    re-queues the task, the retry completes on the other executor, and the
+    released attempt still launches the kernel, so the kernel launches
+    once per completed task plus once per dropped attempt; the coadd is
+    the plain version's."""
+    import time
+
+    from repro_torch.core.objects import DataObject, Task
+    from repro_torch.core.runtime import DiffusionRuntime
+
+    tiles, sky, cal, dy, dx = _inputs(8, 100, 100, seed=7, dev="cpu")
+
+    def slow_stack(inputs):
+        time.sleep(0.3)
+        return ops.stack_rois(inputs["a"], *(t.to(cuda)
+                                              for t in (sky, cal, dy, dx)),
+                              mean=False)
+
+    rt = DiffusionRuntime(n_executors=2, device="cuda")
+    try:
+        rt.put_object(DataObject("a", tiles.numel() * 4), tiles.numpy())
+        before = stacking.launches.value
+        task = Task(inputs=("a",), fn=slow_stack)
+        rt.submit([task])
+        deadline = time.monotonic() + 10.0
+        running = []
+        while not running and time.monotonic() < deadline:
+            time.sleep(0.01)
+            with rt._lock:
+                running = [e for e, st in rt.dispatcher.executors.items()
+                           if task.tid in st.running]
+        assert running, "the task never started"
+        rt.remove_executor(running[0])
+        assert rt.wait(30.0)
+        while rt.dropped_attempts < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)     # the released attempt runs on to its end
+        torch.cuda.synchronize()
+        completed = len(rt.dispatcher.completed)
+        assert completed == 1 and rt.dropped_attempts >= 1
+        assert (stacking.launches.value - before
+                == completed + rt.dropped_attempts)
+        want = stack_rois_ref(*(t.to(cuda) for t in (tiles, sky, cal, dy,
+                                                      dx)))
+        got = task.result
+        assert got.device == cuda
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    finally:
+        rt.shutdown()
+
+
 # --------------------------- flash attention ---------------------------------
 
 FA_CASES = [
