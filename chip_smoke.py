@@ -141,9 +141,20 @@ Phases, each reported on its own lines:
      executor released under it (the provisioner reads the idle set before
      it releases, so a task dispatched in between runs again); no
      provisioning action may fail; the first 64 results must match the
-     plain version.  Then, with the tasks settled, every idle executor but
-     one is released and the card's allocated memory must fall by at
-     least the bytes of the storages only those executors cached;
+     plain version.  The run is recorded (``ObserveSpec``: lifecycle
+     events in a ring of 2^21, a telemetry sample a second): the recorder
+     must drop nothing, emit one ``task_done`` per completed task, one
+     ``exec_start``/``exec_end`` pair per kernel launch, and ``pool``
+     events whose sizes are the report's pool log.  From the events it
+     prints the queue wait (dispatch less arrival) as quantiles, split into
+     the pool growing (a period's first arrival until the pool first
+     reaches that period's peak) and the rest; the telemetry's sample count
+     and last merged snapshot; the card's busy share over a 5 s
+     torch.profiler window around the first peak; and writes a Chrome
+     trace of the run to build/chip_smoke_elastic_trace.json.  Then, with
+     the tasks settled, every idle executor but one is released and the
+     card's allocated memory must fall by at least the bytes of the
+     storages only those executors cached;
  12. training llava-next-mistral-7b at its published widths (d_model
      4096, 32 heads over 8 kv heads of 128, d_ff 14,336, vocab 32,000)
      through the launcher's code path at phase 7's traffic and optimizer,
@@ -154,7 +165,27 @@ Phases, each reported on its own lines:
      within 0.9 of the card's memory.  The measured peak must be within
      20% of the dry run's; the flash kernel must launch 2 x layers x 6
      times, each on tensor cores; the loss must fall by phase 7's rule.
-     One more step runs under torch.profiler for the card's busy share.
+     One more step runs under torch.profiler for the card's busy share;
+ 13. serving over diffusion (``ServeDiffusionEngine``, the experiment
+     API's ``"serve"`` engine) on the card: 128 multi-turn chat sessions
+     of 4 turns (512 requests, each reading its session's prefix pages:
+     a Zipf-shared 4-page system prompt and 2 pages a turn) with KV pages
+     of h2o-danube-3-4b's published widths (92,160 bytes a token, 64-token
+     pages of 5,898,240 bytes; 1,056 pages, 6.23 GB, held in the store as
+     host tensors whose first 16 bytes stamp the page's index) on 4
+     replicas with 2 GiB caches on the card, replayed batch-synchronously.
+     A task fn, a check harness only, holds every input it is given to be
+     on the card, of the page's bytes, with its stamp.  Every request must
+     complete; kv_summary and every request's replica must equal those of
+     the same spec run on the CPU shape-only; the bytes really copied to
+     the card must equal the store reads' and the card's allocated memory
+     must grow by exactly the distinct storages the caches hold.  Its
+     lifecycle events are diffed against the simulator twin's prediction.
+     Then the same traffic without the barrier, the replicas working at
+     once, so requests take pages from their peers: the bytes copied must
+     still equal the store reads' alone (on one card a peer's page is the
+     tensor the peer holds) and memory must again grow by the distinct
+     storages.
 
 Phase 2 runs the stacking kernel at the reference's test shapes and the
 main path's (N=8 and N=32 at 100x100), each beside the launch floor (the
@@ -222,8 +253,27 @@ ELASTIC_LOCALITY, ELASTIC_PERIOD_S = 30, 30.0
 ELASTIC_ARRIVALS = {"kind": "SineWaveArrivals", "mean_rate": 395.0,
                     "amplitude": 375.0, "period_s": ELASTIC_PERIOD_S,
                     "phase": 0.0}
+#: phase 11 records the run: every lifecycle event (23,695 requests x
+#: about 7 events, plus pump, pool and provisioner events, in a ring that
+#: drops none) and a telemetry sample each second; the card's busy share is
+#: read over a profiled window of this length around the first peak
+ELASTIC_RING, ELASTIC_METRICS_S, ELASTIC_PROFILE_S = 1 << 21, 1.0, 5.0
+#: phase 11's tasks/s over the busy span in two earlier runs without
+#: recording (NVIDIA H100 80GB HBM3, 700 W), beside which this run's rate
+#: is printed
+ELASTIC_UNRECORDED_RATE = (390.9, 392.0)
 CHECKED_TASKS = 64
 PIPE_GROUPS, PIPE_GROUP_SIZE, PIPE_HOSTS = 8, 4, 4       # example defaults
+#: phase 13: multi-turn chat sessions served over diffusion, KV pages of
+#: h2o-danube-3-4b's published widths (92,160 bytes a token, 64-token
+#: pages), on 4 replicas with 2 GiB caches on the card, replayed
+#: batch-synchronously as the reference's serve demo runs
+SERVE_DIFFUSION_SESSIONS = {
+    "kind": "chat", "n_sessions": 128, "turns_per_session": 4,
+    "n_system_prompts": 8, "system_prompt_blocks": 4, "turn_blocks": 2,
+    "block": 64, "model": "h2o-danube-3-4b", "think_time_s": 0.0,
+    "turn_seconds": 0.0, "arrivals": {"kind": "BatchArrivals", "at_s": 0.0}}
+SERVE_DIFFUSION_REPLICAS, SERVE_DIFFUSION_CACHE = 4, 2 << 30
 
 STACKING_TPU_KERNEL = "src/repro/kernels/stacking/stacking.py:26"
 STACKING_SOURCE = "src/repro_torch/kernels/stacking/csrc/stack_rois.cu"
@@ -3407,15 +3457,156 @@ class _PoolMonitor(threading.Thread):
                                  torch.cuda.memory_allocated()))
 
 
+class _InBackground(threading.Thread):
+    """Runs ``fn()`` on its own thread; :meth:`result` joins it and returns
+    what ``fn`` returned, or raises what it raised."""
+
+    def __init__(self, fn) -> None:
+        super().__init__(daemon=True, name="main-path")
+        self.fn = fn
+        self.value = None
+        self.error: BaseException | None = None
+
+    def run(self) -> None:
+        try:
+            self.value = self.fn()
+        except BaseException as e:  # noqa: BLE001 - handed to result()
+            self.error = e
+
+    def result(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+def _profile_window(length_s: float, clock) -> dict:
+    """The card profiled for ``length_s`` of wall time while other threads
+    run the main path: its busy time, read as phase 7's ``_profile_train``
+    reads it (the sum of the CUDA events' self device time in
+    ``key_averages()``), and the same sum over the profiler's raw kernel
+    and copy events; and the window's ends on ``clock``.  Only the card's
+    activity is traced: recording every host op of 64 executor threads
+    slowed the run severalfold in the window.  Called on the main thread
+    (the profiler's home)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        begin = clock()
+        time.sleep(length_s)
+        torch.cuda.synchronize()
+        end = clock()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    raw_ms, n_raw = 0.0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and not e.is_user_annotation():
+            raw_ms += e.duration_ns() / 1e6
+            n_raw += 1
+    events = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall_ms, "begin": begin, "end": end,
+            "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "raw_busy_ms": raw_ms,
+            "raw_busy_share": raw_ms / wall_ms, "raw_events": n_raw,
+            "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                    for e in top]}
+
+
+def _queue_waits(events, workload, period_s: float) -> dict:
+    """Queue wait (``task_dispatched`` less ``task_arrived``, from the
+    events, to each task's first dispatch) split in two: while the pool is
+    growing and the rest.  The sine (phase 0) rises from each trough, at
+    three quarters of a period, to its next peak; a wave runs from one
+    trough to the next (the first from the start).  In each wave the pool
+    falls to its smallest size (the provisioner releases what the last
+    wave left idle) and grows from there to the largest size it reaches
+    after it; the growing window runs from the wave's first arrival until
+    the pool first reaches that size.  Of the rest, the requests that
+    arrived while the backlog left at that moment drained (until a pump
+    first saw an empty queue) are also summarised apart.  Waves are placed
+    on the recorder's clock by the first arrival (the workload's own
+    arrival time of the first task marks the run's start), which ``run0``
+    returns."""
+    from repro_torch.workloads.metrics import latency_quantiles
+
+    arrived, dispatched, pool, pumps = {}, {}, [], []
+    for e in events:
+        k = e["kind"]
+        if k == "task_arrived":
+            arrived.setdefault(e["tid"], e["t"])
+        elif k == "task_dispatched":
+            dispatched.setdefault(e["tid"], e["t"])
+        elif k == "pool":
+            pool.append((e["t"], e["size"]))
+        elif k == "pump":
+            pumps.append((e["t"], e["queue"]))
+    pumps.sort()
+    wl_t = {ev.tid: ev.t for ev in workload.events}
+    first = min(arrived, key=arrived.get)
+    run0 = arrived[first] - wl_t[first]
+    last = max(wl_t.values())
+    bounds = [0.0]
+    while bounds[-1] <= last:
+        bounds.append((len(bounds) - 0.25) * period_s)
+    growing = []
+    for lo, hi in zip(bounds, bounds[1:]):
+        starts = [arrived[tid] for tid, t in wl_t.items() if lo <= t < hi]
+        if not starts:
+            continue
+        begin, end = min(starts), max(starts)
+        # the size the pool had at the wave's first arrival, then each
+        # change while its requests arrive
+        sizes = [(begin, next((n for t, n in reversed(pool) if t <= begin),
+                              pool[0][1]))]
+        sizes += [(t, n) for t, n in pool if begin < t <= end]
+        low = min(n for _, n in sizes)
+        after = sizes[next(i for i, (_, n) in enumerate(sizes)
+                           if n == low):]
+        peak = max(n for _, n in after)
+        if peak > low:          # a wave the pool did not grow in has none
+            reached = next(t for t, n in after if n == peak)
+            backlog = next((q for t, q in reversed(pumps) if t <= reached),
+                           0)
+            drained = next((t for t, q in pumps if t > reached and q == 0),
+                           reached)
+            growing.append((begin, reached, low, peak, backlog, drained))
+    waits = {"growing": [], "rest": [], "draining": []}
+    for tid, t in arrived.items():
+        wait = dispatched[tid] - t
+        if any(w[0] <= t < w[1] for w in growing):
+            waits["growing"].append(wait)
+            continue
+        waits["rest"].append(wait)
+        if any(w[1] <= t < w[5] for w in growing):
+            waits["draining"].append(wait)
+    return {"run0": run0,
+            "windows": [(a - run0, b - run0, lo, n, q, d - run0)
+                        for a, b, lo, n, q, d in growing],
+            "draining": latency_quantiles(waits["draining"]),
+            "growing": latency_quantiles(waits["growing"]),
+            "rest": latency_quantiles(waits["rest"]),
+            "all": latency_quantiles(waits["growing"] + waits["rest"])}
+
+
 def phase_elastic(card: str) -> dict:
+    import dataclasses
+
     from repro_torch.apps import astro
     from repro_torch.configs.astro_stacking import WORKLOADS, workload
-    from repro_torch.experiments import RuntimeEngine
+    from repro_torch.experiments import ObserveSpec, RuntimeEngine
     from repro_torch.kernels.stacking.stacking import launches
+    from repro_torch.obs import chrome_trace, quantile
 
     n_tasks, n_files = WORKLOADS[ELASTIC_LOCALITY]
     prov = astro.ELASTIC_PROVISIONER
-    spec = astro.elastic_spec(n_tasks, n_files, ELASTIC_ARRIVALS, prov)
+    spec = dataclasses.replace(
+        astro.elastic_spec(n_tasks, n_files, ELASTIC_ARRIVALS, prov),
+        observe=ObserveSpec(events=True, ring_capacity=ELASTIC_RING,
+                            metrics=True,
+                            metrics_interval_s=ELASTIC_METRICS_S))
     log(f"[elastic] {n_tasks} tasks over {n_files} files (Table 2, locality "
         f"{ELASTIC_LOCALITY}; no cut), sine arrivals mean "
         f"{ELASTIC_ARRIVALS['mean_rate']:.0f}/s amplitude "
@@ -3423,7 +3614,9 @@ def phase_elastic(card: str) -> dict:
         f"{ELASTIC_PERIOD_S:.0f}s at time scale 1; pool from 1 executor, "
         f"{prov.policy} provisioner {prov.min_executors}-"
         f"{prov.max_executors}, idle timeout {prov.idle_timeout_s}s, "
-        f"cooldown {prov.trigger_cooldown_s}s, tick {prov.period_s}s")
+        f"cooldown {prov.trigger_cooldown_s}s, tick {prov.period_s}s; "
+        f"lifecycle events on (ring {ELASTIC_RING}), telemetry every "
+        f"{ELASTIC_METRICS_S}s")
     t0 = time.monotonic()
     torch.cuda.empty_cache()
     eng = RuntimeEngine(device="cuda").prepare(spec)
@@ -3439,14 +3632,28 @@ def phase_elastic(card: str) -> dict:
         monitor = _PoolMonitor(rt)
         monitor.start()
         launches.reset()
+        # the run goes on a thread of its own, so that the profiler starts
+        # and stops on this one, around the first peak (a quarter period)
+        start_s = ELASTIC_PERIOD_S / 4 - ELASTIC_PROFILE_S / 2
+        # a process's first profile initialises the card's tracing, which
+        # stalls every thread for seconds: do it before the run
+        _profile_window(0.1, time.monotonic)
+        runner = _InBackground(lambda: eng.run(
+            task_fn=astro.decode_and_stack, time_scale=1.0, timeout=600.0))
         try:
-            rep = eng.run(task_fn=astro.decode_and_stack, time_scale=1.0,
-                          timeout=600.0)
+            runner.start()
+            time.sleep(start_s)
+            profiled = dict(_profile_window(ELASTIC_PROFILE_S,
+                                            eng.recorder.clock),
+                            start_s=start_s)
+            rep = runner.result()
             torch.cuda.synchronize()
             n_launch = launches.value
         finally:
             monitor.stop_evt.set()
             monitor.join(5.0)
+        rec = eng.recorder
+        events = rec.events()      # before the release below adds pool events
         done = rt.dispatcher.completed
         retries = sum(t.attempts for t in rt.dispatcher.tasks.values())
         shape = astro.pool_shape(list(rep.pool_log), ELASTIC_PERIOD_S)
@@ -3457,7 +3664,9 @@ def phase_elastic(card: str) -> dict:
         log(f"[elastic] completed {rep.n_completed}/{rep.n_tasks} failed "
             f"{rep.n_failed} | wall {rep.wall_s:.2f}s | "
             f"{rep.tasks_per_second:.1f} tasks/s over the busy span "
-            f"({rep.busy_span_s:.2f}s) | {card}")
+            f"({rep.busy_span_s:.2f}s; earlier runs without recording: "
+            f"{ELASTIC_UNRECORDED_RATE[0]}-{ELASTIC_UNRECORDED_RATE[1]}) | "
+            f"{card}")
         log(f"[elastic] pool: low {shape['low']}, peak {shape['peak']}, "
             f"{shape['rises']} rises and {shape['falls']} falls, grew in "
             f"periods {shape['grew']}, shrank between the peaks "
@@ -3495,6 +3704,101 @@ def phase_elastic(card: str) -> dict:
                             "the dispatcher re-queued")
         if eng.provision_failures:
             failures.append(f"provisioning failed: {eng.provision_failures}")
+        # the recording: nothing dropped, one task_done per completed task,
+        # one exec span per kernel launch, pool events as the pool log
+        kinds: dict = {}
+        done_tids: dict = {}
+        for e in events:
+            kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+            if e["kind"] == "task_done":
+                done_tids[e["tid"]] = done_tids.get(e["tid"], 0) + 1
+        pool_sizes = [e["size"] for e in events if e["kind"] == "pool"]
+        log(f"[elastic] recorded {len(events)} events ({rec.emitted} "
+            f"emitted, {rec.dropped} dropped): "
+            + ", ".join(f"{k} {n}" for k, n in sorted(kinds.items())))
+        if rec.dropped:
+            failures.append(f"the recorder dropped {rec.dropped} events")
+        if (len(done_tids) != rep.n_completed
+                or any(n != 1 for n in done_tids.values())
+                or set(done_tids) != {t.tid for t in done}):
+            failures.append("not one task_done event per completed task")
+        if not (kinds.get("exec_start") == kinds.get("exec_end")
+                == n_launch):
+            failures.append(f"{kinds.get('exec_start')} exec_start and "
+                            f"{kinds.get('exec_end')} exec_end events for "
+                            f"{n_launch} kernel launches")
+        if pool_sizes != [n for _, n in rep.pool_log]:
+            failures.append("the pool events' sizes differ from the pool log")
+        waits = _queue_waits(events, eng.workload, ELASTIC_PERIOD_S)
+        for part in ("growing", "rest", "draining", "all"):
+            q = waits[part]
+            log(f"[elastic] queue wait ({part}): n {q['n']}, p50 "
+                f"{q['p50'] * 1e3:.3f} ms, p90 {q['p90'] * 1e3:.3f} ms, p99 "
+                f"{q['p99'] * 1e3:.3f} ms, mean {q['mean'] * 1e3:.3f} ms, "
+                f"max {q['max'] * 1e3:.3f} ms")
+        log("[elastic] growing windows (s from the run's start: a wave's "
+            "first arrival -> the pool at its peak after its low; the "
+            "backlog then, drained at): "
+            + ", ".join(f"{a:.2f}->{b:.2f} ({lo}->{n} executors; {q} "
+                        f"queued, drained at {d:.2f})"
+                        for a, b, lo, n, q, d in waits["windows"]))
+        tel = rep.telemetry
+        merged = tel["merged"]
+        pump = merged["histograms"].get("sched.pump_latency_s")
+        log(f"[elastic] telemetry: {tel['n_samples']} samples; last merged "
+            f"snapshot: counters {json.dumps(merged['counters'])}, gauges "
+            f"{json.dumps(merged['gauges'])}, pump latency "
+            f"n {pump['count']} p50 <= {quantile(pump, 0.5)} s p99 <= "
+            f"{quantile(pump, 0.99)} s; health events: "
+            + (", ".join(f"{h['rule']} at {h['t']:.1f}s ({h['detail']})"
+                         for h in tel["health_events"]) or "none"))
+        if tel["n_samples"] < rep.wall_s / ELASTIC_METRICS_S - 2:
+            failures.append(f"{tel['n_samples']} telemetry samples in "
+                            f"{rep.wall_s:.1f}s")
+        # the profiled window against one as long, unprofiled, around the
+        # second peak: requests done in each, and the card time a request
+        # takes (profiled) at the unprofiled rate
+        second = waits["run0"] + 1.25 * ELASTIC_PERIOD_S
+        spans = {"profiled": (profiled["begin"], profiled["end"]),
+                 "second peak": (second - ELASTIC_PROFILE_S / 2,
+                                 second + ELASTIC_PROFILE_S / 2)}
+        done_in = {name: sum(1 for e in events if e["kind"] == "task_done"
+                             and a <= e["t"] < b)
+                   for name, (a, b) in spans.items()}
+        per_request_ms = profiled["busy_ms"] / max(done_in["profiled"], 1)
+        rates = {name: n / (spans[name][1] - spans[name][0])
+                 for name, n in done_in.items()}
+        profiled.update(done_in_window=done_in, done_per_s=rates,
+                        device_ms_per_request=per_request_ms,
+                        busy_share_at_second_peak_rate=(
+                            per_request_ms * rates["second peak"] / 1e3),
+                        busy_share_at_run_rate=(
+                            per_request_ms * rep.tasks_per_second / 1e3))
+        log(f"[elastic] requests done: {done_in['profiled']} in the profiled"
+            f" window ({rates['profiled']:.1f}/s), {done_in['second peak']} "
+            f"in as long around the second peak, unprofiled "
+            f"({rates['second peak']:.1f}/s); card time a request "
+            f"{per_request_ms * 1e3:.2f} us, so a busy share of "
+            f"{profiled['busy_share_at_second_peak_rate']:.5f} at the second"
+            f" peak's rate and {profiled['busy_share_at_run_rate']:.5f} at "
+            f"the run's {rep.tasks_per_second:.1f}/s")
+        log(f"[elastic] card busy over {profiled['wall_ms']:.1f} ms from "
+            f"{profiled['start_s']:.1f}s (the first peak): "
+            f"{profiled['busy_ms']:.3f} ms, share "
+            f"{profiled['busy_share']:.5f} (key_averages); raw events "
+            f"{profiled['raw_events']}, {profiled['raw_busy_ms']:.3f} ms, "
+            f"share {profiled['raw_busy_share']:.5f} | {card}")
+        log(f"[elastic] profiled kernels: {profiled['top']}")
+        trace_path = ROOT / "build" / "chip_smoke_elastic_trace.json"
+        trace_path.parent.mkdir(parents=True, exist_ok=True)
+        t_trace = time.monotonic()
+        trace = chrome_trace(events, trace_path,
+                             samples=list(eng.telemetry.series))
+        spans = sum(1 for e in trace["traceEvents"] if e["ph"] == "X")
+        log(f"[elastic] chrome trace {trace_path.relative_to(ROOT)}: "
+            f"{len(trace['traceEvents'])} records, {spans} spans, "
+            f"{trace_path.stat().st_size / 1e6:.1f} MB, written in "
+            f"{time.monotonic() - t_trace:.2f}s")
         worst = 0.0
         for t in done[:CHECKED_TASKS]:
             want = _recompute(eng, t, [int(oid[3:]) for oid in t.inputs])
@@ -3549,6 +3853,14 @@ def phase_elastic(card: str) -> dict:
                 "released": len(release), "held_alone_bytes": held_alone,
                 "results_bytes": results_bytes,
                 "checked_max_abs_err": worst,
+                "events": {"recorded": len(events), "emitted": rec.emitted,
+                           "dropped": rec.dropped, "by_kind": kinds},
+                "queue_wait": waits,
+                "telemetry": {"n_samples": tel["n_samples"],
+                              "merged": merged,
+                              "health_events": tel["health_events"]},
+                "profile": profiled,
+                "chrome_trace": str(trace_path.relative_to(ROOT)),
                 "seconds": time.monotonic() - t0}
     finally:
         eng.shutdown()
@@ -3737,6 +4049,280 @@ def phase_vision_train(card: str) -> dict:
             "launches_all": counts, "profile": prof, "card": card}
 
 
+
+# --------------------------------------------------------------------------
+# phase 13: serving over diffusion, KV pages on the card
+# --------------------------------------------------------------------------
+
+class _CopyCounter:
+    """While active, counts the bytes the runtime really copies onto its
+    device (``core.runtime.on_device`` moving a tensor from elsewhere), and
+    the calls that found the tensor already there (a cache admission, or a
+    page taken from a peer's cache, which on one card is the same tensor)."""
+
+    def __enter__(self):
+        from repro_torch.core import runtime
+
+        self.module, self.real = runtime, runtime.on_device
+        self.lock = threading.Lock()
+        self.copied_bytes = self.copies = self.in_place = 0
+
+        def counting(payload, device):
+            if isinstance(payload, torch.Tensor):
+                with self.lock:
+                    if payload.device != device:
+                        self.copies += 1
+                        self.copied_bytes += payload.untyped_storage().nbytes()
+                    else:
+                        self.in_place += 1
+            return self.real(payload, device)
+        runtime.on_device = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.module.on_device = self.real
+
+
+def _kv_pages(objects) -> tuple[dict, dict]:
+    """One host ``uint8`` tensor of each page's bytes, its first 16 bytes
+    the page's index (little-endian), the rest a constant; and each page's
+    stamp."""
+    pages, stamps = {}, {}
+    for i, ob in enumerate(objects):
+        stamp = i.to_bytes(16, "little")
+        t = torch.empty(ob.size_bytes, dtype=torch.uint8)
+        t.fill_(0xA5)
+        t[:16] = torch.frombuffer(bytearray(stamp), dtype=torch.uint8)
+        pages[ob.oid], stamps[ob.oid] = t, stamp
+    return pages, stamps
+
+
+def _cached_storages(rt) -> dict[int, int]:
+    """Device storages the replicas' caches hold, by address: a page two
+    replicas hold (one took it from the other) is one storage."""
+    out = {}
+    for w in rt.workers.values():
+        with w.lock:
+            payloads = list(w.payloads.values())
+        for t in payloads:
+            st = t.untyped_storage()
+            out[st.data_ptr()] = st.nbytes()
+    return out
+
+
+def _serve_diffusion_run(spec, pages: dict, stamps: dict,
+                         barrier_every) -> dict:
+    """One run of ``spec`` through the serve engine on the card, pages
+    from ``pages``, every input checked by the task fn; what it moved.  The
+    replicas' caches are emptied when it returns, so the next run starts
+    from the same device memory."""
+    from repro_torch.serve.diffusion import ServeDiffusionEngine, kv_summary
+
+    dev = torch.device("cuda", 0)
+    page = next(iter(pages.values())).numel()
+    checked = []
+    lock = threading.Lock()
+
+    def check_inputs(inputs):
+        """A check harness, not a feature: every page on the card, of the
+        page's bytes, carrying its stamp."""
+        for oid, t in inputs.items():
+            if t.device != dev or t.dtype != torch.uint8 \
+                    or t.numel() != page:
+                raise AssertionError(f"{oid}: {t.device} {t.dtype} "
+                                     f"{t.numel()} bytes")
+            if bytes(t[:16].tolist()) != stamps[oid]:
+                raise AssertionError(f"{oid}: wrong stamp")
+        with lock:
+            checked.append(len(inputs))
+
+    eng = ServeDiffusionEngine(device="cuda").prepare(spec)
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        with _CopyCounter() as copies:
+            rep = eng.run(task_fn=check_inputs,
+                          payload_factory=lambda ob: pages[ob.oid],
+                          barrier_every=barrier_every, timeout=600.0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        gc.collect()
+        mem1 = torch.cuda.memory_allocated()
+        peak = torch.cuda.max_memory_allocated()
+        rt = eng.runtime
+        held = _cached_storages(rt)
+        entries = sum(len(w.payloads) for w in rt.workers.values())
+        evictions = sum(w.cache.stats.evictions for w in rt.workers.values())
+        placements = {t.tid: t.executor for t in rt.dispatcher.completed}
+        by_replica = {eid: sum(1 for e in placements.values() if e == eid)
+                      for eid in sorted(rt.workers)}
+        return {"report": rep, "summary": kv_summary(rep),
+                "placements": placements, "by_replica": by_replica,
+                "checked_requests": len(checked),
+                "checked_inputs": sum(checked),
+                "h2d_bytes": copies.copied_bytes, "h2d_copies": copies.copies,
+                "in_place": copies.in_place,
+                "memory_before": mem0, "memory_after": mem1,
+                "peak_memory": peak, "cached_storages": len(held),
+                "cached_storage_bytes": sum(held.values()),
+                "cache_entries": entries, "evictions": evictions,
+                "events": eng.recorder.events() if eng.recorder else None,
+                "outcomes": eng.last_outcomes, "wall_s": wall}
+    finally:
+        eng.shutdown()
+        for w in eng.runtime.workers.values():
+            w.drop_cache()
+
+
+def phase_serve_diffusion(card: str) -> dict:
+    from repro_torch.experiments import ObserveSpec, build_workload
+    from repro_torch.obs import (diff_outcomes, format_divergence,
+                                 sim_replay_outcomes)
+    from repro_torch.serve.diffusion import (ServeDiffusionEngine,
+                                             kv_summary, session_spec)
+
+    t0 = time.monotonic()
+    spec = session_spec("serve-diffusion", SERVE_DIFFUSION_SESSIONS,
+                        n_replicas=SERVE_DIFFUSION_REPLICAS,
+                        replica_cache_bytes=SERVE_DIFFUSION_CACHE, seed=0,
+                        observe=ObserveSpec(events=True))
+    wl = build_workload(spec.workload)
+    page = wl.objects[0].size_bytes
+    widths = sorted({len(e.inputs) for e in wl.events})
+    sess = SERVE_DIFFUSION_SESSIONS
+    log(f"[serve-diffusion] {len(wl)} requests ({sess['n_sessions']} "
+        f"sessions x {sess['turns_per_session']} turns) "
+        f"reading {widths} pages of {page} B "
+        f"({sess['model']}: {page // sess['block']} B a token, "
+        f"{sess['block']}-token pages); {len(wl.objects)} "
+        f"pages, {len(wl.objects) * page / 1e9:.3f} GB in the store; "
+        f"{SERVE_DIFFUSION_REPLICAS} replicas with "
+        f"{SERVE_DIFFUSION_CACHE / 2**30:.2f} GiB caches on the card; "
+        f"batch-synchronous replay (barrier every request)")
+    t_pages = time.monotonic()
+    pages, stamps = _kv_pages(wl.objects)
+    log(f"[serve-diffusion] pages made on the host in "
+        f"{time.monotonic() - t_pages:.2f}s")
+    run = _serve_diffusion_run(spec, pages, stamps, barrier_every=1)
+    rep, s = run["report"], run["summary"]
+    # the same spec on the CPU, shape-only, as the reference runs it
+    cpu = ServeDiffusionEngine(device="cpu").prepare(spec)
+    try:
+        cpu_rep = cpu.run(barrier_every=1, timeout=600.0)
+        cpu_placements = {t.tid: t.executor
+                          for t in cpu.runtime.dispatcher.completed}
+    finally:
+        cpu.shutdown()
+    gb = 1e9
+    log(f"[serve-diffusion] completed {rep.n_completed}/{rep.n_tasks} "
+        f"failed {rep.n_failed}; requests checked on the card "
+        f"{run['checked_requests']} ({run['checked_inputs']} pages); "
+        f"requests by replica {run['by_replica']} | {card}")
+    log(f"[serve-diffusion] reused token fraction "
+        f"{s['reused_token_fraction']:.4f}; KV bytes local "
+        f"{s['local_kv_bytes'] / gb:.4f} GB, from peers "
+        f"{s['peer_kv_bytes'] / gb:.4f} GB, recomputed "
+        f"{s['recomputed_kv_bytes'] / gb:.4f} GB; requests "
+        f"{s['full_reuse_requests']} full / {s['partial_reuse_requests']} "
+        f"partial / {s['cold_requests']} cold")
+    log(f"[serve-diffusion] host-to-device bytes copied "
+        f"{run['h2d_bytes'] / gb:.4f} GB in {run['h2d_copies']} copies "
+        f"({run['in_place']} tensors already on the card); evictions "
+        f"{run['evictions']}; the caches hold {run['cache_entries']} pages in "
+        f"{run['cached_storages']} storages, "
+        f"{run['cached_storage_bytes'] / gb:.4f} GB; device memory "
+        f"{run['memory_before'] / gb:.4f} GB before, "
+        f"{run['memory_after'] / gb:.4f} GB after, peak "
+        f"{run['peak_memory'] / gb:.4f} GB; run wall {run['wall_s']:.2f}s "
+        f"| {card}")
+    failures = []
+    if rep.n_completed != len(wl) or rep.n_failed:
+        failures.append("not every request completed")
+    if run["checked_requests"] != rep.n_completed:
+        failures.append(f"{run['checked_requests']} requests checked")
+    if s != kv_summary(cpu_rep):
+        failures.append(f"kv_summary {s} differs from the CPU shape-only "
+                        f"run's {kv_summary(cpu_rep)}")
+    if run["placements"] != cpu_placements:
+        failures.append("placements differ from the CPU shape-only run's")
+    grown = run["memory_after"] - run["memory_before"]
+    if grown != run["cached_storage_bytes"]:
+        failures.append(f"device memory grew {grown} B for "
+                        f"{run['cached_storage_bytes']} B of cached storages")
+    if run["h2d_bytes"] != s["recomputed_kv_bytes"]:
+        failures.append(f"{run['h2d_bytes']} B copied to the card for "
+                        f"{s['recomputed_kv_bytes']} B of store reads")
+    measured = run["outcomes"]
+    div = diff_outcomes(measured, sim_replay_outcomes(spec))
+    log("[serve-diffusion] against the sim twin: "
+        + "; ".join(format_divergence(div).splitlines()))
+    kinds: dict = {}
+    for e in run["events"]:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    log("[serve-diffusion] lifecycle events: "
+        + ", ".join(f"{k} {n}" for k, n in sorted(kinds.items())))
+    if kinds.get("task_done") != rep.n_completed:
+        failures.append("not one task_done event per request")
+    # the same traffic without the barrier: the replicas work at once, so
+    # requests take pages from their peers' caches; on one card such a
+    # page is the tensor the peer holds, and nothing is copied for it
+    spec_free = session_spec("serve-diffusion-free", SERVE_DIFFUSION_SESSIONS,
+                             n_replicas=SERVE_DIFFUSION_REPLICAS,
+                             replica_cache_bytes=SERVE_DIFFUSION_CACHE,
+                             seed=0)
+    free = _serve_diffusion_run(spec_free, pages, stamps,
+                                barrier_every=None)
+    fs = free["summary"]
+    free_grown = free["memory_after"] - free["memory_before"]
+    log(f"[serve-diffusion] without the barrier: completed "
+        f"{free['report'].n_completed}, requests by replica "
+        f"{free['by_replica']}; KV bytes local {fs['local_kv_bytes'] / gb:.4f}"
+        f" GB, from peers {fs['peer_kv_bytes'] / gb:.4f} GB "
+        f"({free['report'].peer_hits} pages), recomputed "
+        f"{fs['recomputed_kv_bytes'] / gb:.4f} GB; host-to-device bytes "
+        f"copied {free['h2d_bytes'] / gb:.4f} GB; the caches hold "
+        f"{free['cache_entries']} pages in {free['cached_storages']} "
+        f"storages ({free['cached_storage_bytes'] / gb:.4f} GB), device "
+        f"memory grew {free_grown / gb:.4f} GB; peak "
+        f"{free['peak_memory'] / gb:.4f} GB; run wall "
+        f"{free['wall_s']:.2f}s | {card}")
+    if free["report"].n_completed != len(wl) or free["report"].n_failed:
+        failures.append("not every request completed without the barrier")
+    free_div = diff_outcomes(free["outcomes"],
+                             sim_replay_outcomes(spec_free))
+    log("[serve-diffusion] without the barrier, against the sim twin: "
+        + "; ".join(format_divergence(free_div).splitlines()))
+    if free["checked_requests"] != len(wl):
+        failures.append(f"{free['checked_requests']} requests checked "
+                        f"without the barrier")
+    if free["h2d_bytes"] != fs["recomputed_kv_bytes"]:
+        failures.append(f"without the barrier {free['h2d_bytes']} B copied "
+                        f"for {fs['recomputed_kv_bytes']} B of store reads")
+    if free_grown != free["cached_storage_bytes"]:
+        failures.append("without the barrier the device memory did not "
+                        "grow by the cached storages' bytes")
+    seconds = time.monotonic() - t0
+    log(f"[serve-diffusion] phase wall {seconds:.1f}s")
+    del pages
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("serve-diffusion: " + "; ".join(failures))
+    keep = ("summary", "by_replica", "checked_requests", "checked_inputs",
+            "h2d_bytes", "h2d_copies", "in_place", "memory_before",
+            "memory_after", "peak_memory", "cached_storages",
+            "cached_storage_bytes", "cache_entries", "evictions", "wall_s")
+    return {"requests": len(wl), "pages": len(wl.objects), "page_bytes": page,
+            "store_bytes": len(wl.objects) * page, "card": card,
+            "barrier": {k: run[k] for k in keep},
+            "no_barrier": {k: free[k] for k in keep},
+            "events_by_kind": kinds, "divergence": div,
+            "divergence_no_barrier": free_div,
+            "seconds": seconds}
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--json", type=Path, default=None,
@@ -3765,6 +4351,7 @@ def main(argv=None) -> int:
     encdec = phase_encdec()
     elastic = phase_elastic(env["nvidia_smi"])
     vision = phase_vision_train(env["nvidia_smi"])
+    serve_diffusion = phase_serve_diffusion(env["nvidia_smi"])
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
@@ -3915,7 +4502,7 @@ def main(argv=None) -> int:
              "serve": serve, "ssm_serve": ssm, "train": trained,
              "moe": moe, "ssm_train": ssm_trained, "encdec": encdec,
              "elastic": elastic, "vision_train": vision,
-             "kernels_line": line,
+             "serve_diffusion": serve_diffusion, "kernels_line": line,
              "seconds": time.monotonic() - t_start},
             indent=2, default=str) + "\n")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")

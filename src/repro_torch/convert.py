@@ -29,19 +29,15 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (flatten, param_defs, torch_dtype,
                                             unflatten)
 
-#: reference spec fields this package does not keep (the fleet's and the
-#: observability layer's), with the reference's defaults: a saved spec may
-#: carry them only at these values.
+#: reference spec fields this package does not keep (the fleet's), with
+#: the reference's defaults: a saved spec may carry them only at these
+#: values.
 _DROPPED_SPEC_FIELDS = {
     "hosts": 0,
     "threads_per_host": 1,
     "wire_batch": 64,
     "local_dispatch": False,
-    "observe": {"events": False, "sink_path": None, "ring_capacity": 65536,
-                "metrics": False, "metrics_interval_s": 0.25,
-                "metrics_sink_path": None, "metrics_port": -1},
 }
-_DROPPED_WORKLOAD_FIELDS = {"trace_path": None, "sessions": None}
 
 
 def store_from_numpy(items: Iterable[tuple[str, int, np.ndarray]],
@@ -81,9 +77,6 @@ def spec_from_json(path: Union[str, Path]) -> ExperimentSpec:
     their defaults, otherwise this raises rather than dropping intent."""
     d = _strip(json.loads(Path(path).read_text()), _DROPPED_SPEC_FIELDS,
                "spec")
-    if isinstance(d.get("workload"), dict):
-        d["workload"] = _strip(d["workload"], _DROPPED_WORKLOAD_FIELDS,
-                               "spec.workload")
     return ExperimentSpec.from_dict(d)
 
 

@@ -67,6 +67,13 @@ class DynamicResourceProvisioner:
         self._last_trigger = -float("inf")
         self.n_allocated = 0
         self.n_released = 0
+        # optional repro_torch.obs.Recorder; the owning engine installs it
+        # so DRP decisions land in the same event stream as the pool
+        # transitions they cause (one "provision" event per non-empty step)
+        self.recorder = None
+        # optional repro_torch.obs.metrics.MetricsRegistry (same install-and-
+        # None-guard contract; DESIGN.md §13)
+        self.metrics = None
 
     def step(
         self,
@@ -110,6 +117,19 @@ class DynamicResourceProvisioner:
             releasable = ((live_executors - self.min_executors) // q) * q
             acts.release = idle_executors[:releasable]
             self.n_released += len(acts.release)
+        if self.recorder is not None and (acts.allocate or acts.release):
+            self.recorder.emit("provision", allocate=acts.allocate,
+                               release=len(acts.release), queue=queue_len,
+                               live=live_executors)
+        m = self.metrics
+        if m is not None:
+            m.gauge_set("drp.pool_live", live_executors)
+            if acts.allocate:
+                m.inc("drp.grows")
+                m.inc("drp.executors_allocated", acts.allocate)
+            if acts.release:
+                m.inc("drp.shrinks")
+                m.inc("drp.executors_released", len(acts.release))
         return acts
 
     def snapshot(self) -> dict:

@@ -342,11 +342,26 @@ class DiffusionRuntime:
         store: Optional[ObjectStore] = None,
         seed: int = 0,
         index_update_batch: int = 1,   # >1 demonstrates loose coherence
+        recorder=None,                 # optional repro_torch.obs.Recorder
+        metrics=None,                  # optional obs.metrics.Telemetry
         device: str | torch.device = "cuda",
     ) -> None:
         self.device = resolve_device(device)
         self.store = store if store is not None else ObjectStore()
         self.dispatcher = Dispatcher(policy)
+        # lifecycle observability (repro_torch.obs): None = recording off,
+        # and every hot-path hook below is a None-guard -- off-by-default
+        # free.
+        self.recorder = recorder
+        self.dispatcher.recorder = recorder
+        # live telemetry plane (repro_torch.obs.metrics, DESIGN.md §13):
+        # the ``metrics`` kwarg carries the whole Telemetry bundle (registry
+        # + sampling interval + sink + health); hot paths only ever touch
+        # the registry, through the same None-guard contract as the
+        # recorder.
+        self.telemetry = metrics
+        self.metrics = metrics.registry if metrics is not None else None
+        self.dispatcher.metrics = self.metrics
         self.ledger = RuntimeLedger()
         self.stats = DispatchStats()
         self.workers: dict[str, ExecutorWorker] = {}
@@ -393,6 +408,9 @@ class DiffusionRuntime:
             self.dispatcher.executor_joined(eid, time.monotonic())
             self.pool_log.append((time.monotonic() - self._t0,
                                   len(self.workers)))
+            if self.recorder is not None:
+                self.recorder.emit("pool", eid=eid, size=len(self.workers),
+                                   delta=1)
         w.start()
         return eid
 
@@ -415,6 +433,9 @@ class DiffusionRuntime:
                 return
             self.pool_log.append((time.monotonic() - self._t0,
                                   len(self.workers)))
+            if self.recorder is not None:
+                self.recorder.emit("pool", eid=eid, size=len(self.workers),
+                                   delta=-1)
             self._deregister_locked(eid, failed)
         w.stop()
         w.drop_cache()
@@ -579,10 +600,16 @@ class DiffusionRuntime:
         return th
 
     def _pump(self) -> None:
+        rec = self.recorder
         with self._lock:
             t0 = time.perf_counter()
             dispatches = self.dispatcher.next_dispatches(time.monotonic())
             self._note_pump_locked(len(dispatches), time.perf_counter() - t0)
+            qlen = self.dispatcher.queue_len if rec is not None else 0
+        if rec is not None:
+            # emitted OUTSIDE the runtime lock: the recorder's own lock is
+            # the only one recording ever takes on this path
+            rec.emit("pump", n=len(dispatches), queue=qlen)
         for d in dispatches:
             w = self.workers.get(d.executor)
             if w is None:
@@ -592,7 +619,7 @@ class DiffusionRuntime:
             w.dispatch(d)
 
     def _resolve(self, acc: "_InputLedger", w: ExecutorWorker, oid: str,
-                 hints: dict[str, tuple[str, ...]]) -> Any:
+                 hints: dict[str, tuple[str, ...]], tid: str = "") -> Any:
         """Stage one input on ``w``'s device, accounting a per-attempt
         accumulator (joins need the per-task split: a k-input task may hit
         locally on some inputs, peer-fetch others, miss the rest).  Only
@@ -605,10 +632,14 @@ class DiffusionRuntime:
         guard drops de-registered workers -- so ledger totals always equal
         the sum of counted attempts."""
         size = self.dispatcher.sizes.get(oid, 0)
+        rec = self.recorder
         payload = w.cache_lookup(oid)
         if payload is not None:
             acc.cache_hits += 1
             acc.bytes_local += size
+            if rec is not None:
+                rec.emit("input", tid=tid, eid=w.eid, oid=oid,
+                         source="local", bytes=size)
             return payload
         acc.cache_misses += 1
         for peer_id in hints.get(oid, ()):
@@ -621,11 +652,17 @@ class DiffusionRuntime:
             if payload is not None:
                 acc.peer_hits += 1
                 acc.bytes_cache_to_cache += size
+                if rec is not None:
+                    rec.emit("input", tid=tid, eid=w.eid, oid=oid,
+                             source="peer", bytes=size, peer=peer_id)
                 obj = self.store.meta(oid) if oid in self.store else DataObject(oid, size)
                 self._emit(w.admit_update(obj, payload))
                 return payload
         obj, payload = self.store.get(oid)
         acc.bytes_store += obj.size_bytes
+        if rec is not None:
+            rec.emit("input", tid=tid, eid=w.eid, oid=oid,
+                     source="store", bytes=obj.size_bytes)
         # the one host-to-device copy of a store read; the cache keeps this
         # same tensor (or refuses it, and then only this task uses it)
         payload = on_device(payload, w.device)
@@ -653,11 +690,56 @@ class DiffusionRuntime:
             st.dispatches += n_dispatches
             if n_dispatches > st.max_dispatch_batch:
                 st.max_dispatch_batch = n_dispatches
+        m = self.metrics
+        if m is not None:
+            m.inc("sched.pump_calls")
+            if n_dispatches:
+                m.inc("sched.dispatches", n_dispatches)
+            m.observe("sched.pump_latency_s", hold_s)
 
     def dispatch_stats(self) -> dict:
         """Central-loop counter snapshot for RunReport."""
         with self._lock:
             return self.stats.as_dict()
+
+    def sample_metrics(self) -> None:
+        """Refresh the registry's gauges from live runtime state (the
+        telemetry sampler calls this each tick; DESIGN.md §13).  Gauges are
+        absolute totals for THIS source, so re-sampling is idempotent and a
+        cluster merge sums per-source values.  ``cache.bytes`` counts the
+        cached objects' ``size_bytes``, as the reference does, not the
+        device memory their tensors take."""
+        m = self.metrics
+        if m is None:
+            return
+        with self._lock:
+            qlen = self.dispatcher.queue_len
+            pool = len(self.workers)
+            caches = [w.cache for w in self.workers.values()
+                      if getattr(w, "cache", None) is not None]
+            used = sum(c.used_bytes for c in caches)
+            hits = sum(c.stats.hits for c in caches)
+            misses = sum(c.stats.misses for c in caches)
+            evictions = sum(c.stats.evictions for c in caches)
+            insertions = sum(c.stats.insertions for c in caches)
+            readmits = sum(c.stats.readmits for c in caches)
+        led = self.ledger
+        with led.lock:
+            b_local, b_c2c, b_store = (led.bytes_local, led.bytes_c2c,
+                                       led.bytes_store)
+        m.gauge_set("sched.queue_depth", qlen)
+        m.gauge_set("pool.size", pool)
+        m.gauge_set("cache.bytes", used)
+        m.gauge_set("cache.hits", hits)
+        m.gauge_set("cache.misses", misses)
+        m.gauge_set("cache.evictions", evictions)
+        m.gauge_set("cache.insertions", insertions)
+        m.gauge_set("cache.readmits", readmits)
+        m.gauge_set("bw.bytes_local", b_local)
+        m.gauge_set("bw.bytes_c2c", b_c2c)
+        m.gauge_set("bw.bytes_store", b_store)
+        if self.recorder is not None:
+            m.gauge_set("obs.recorder_dropped", self.recorder.dropped)
 
     def _execute(self, w: ExecutorWorker, disp: Dispatch) -> None:
         t = disp.task
@@ -665,9 +747,12 @@ class DiffusionRuntime:
         t.start_time = time.monotonic()
         ok = True
         acc = _InputLedger()
+        rec = self.recorder
         try:
-            inputs = {oid: self._resolve(acc, w, oid, disp.hints)
+            inputs = {oid: self._resolve(acc, w, oid, disp.hints, tid=t.tid)
                       for oid in t.inputs}
+            if rec is not None:
+                rec.emit("exec_start", tid=t.tid, eid=w.eid)
             if t.fn is not None:
                 t.result = t.fn(**inputs) if _wants_kwargs(t.fn) else t.fn(inputs)
             for ob in t.outputs:
@@ -683,6 +768,8 @@ class DiffusionRuntime:
         except Exception as e:  # noqa: BLE001 - task failure is data, not a crash
             ok = False
             t.result = e
+        if rec is not None:
+            rec.emit("exec_end", tid=t.tid, eid=w.eid, ok=ok)
         self._finish_attempt(w, t, acc, ok)
         self._pump()
 

@@ -197,6 +197,14 @@ class Dispatcher:
         self._twin_of: dict[str, str] = {}        # original tid -> twin tid
         self.n_decisions = 0
         self.decision_lookups = 0
+        # optional repro_torch.obs.Recorder: the owning engine installs it;
+        # every emission below is None-guarded so recording-off costs one
+        # attribute load per lifecycle transition (never per queue scan).
+        self.recorder = None
+        # optional repro_torch.obs.metrics.MetricsRegistry, same contract:
+        # the owning engine installs it, hooks are None-guarded (DESIGN.md
+        # §13).
+        self.metrics = None
         # ---- incremental max-compute-util placement state -----------------
         # tid -> oid -> executors known (per the loosely-coherent index) to
         # cache it; resolved once at enqueue, patched by index-update hooks.
@@ -267,13 +275,18 @@ class Dispatcher:
             t.state = TaskState.SUBMITTED
             requeue.append(t)
         del self.executors[eid]
+        rec = self.recorder
         for t in requeue:
+            if rec is not None:
+                rec.emit("task_requeued", tid=t.tid, eid=eid,
+                         reason="executor_left")
             self._enqueue(t, front=True)
         return requeue
 
     # ---------------- submission -------------------------------------------
     def submit(self, tasks: Iterable[Task], now: float) -> int:
         n = 0
+        rec = self.recorder
         for t in tasks:
             t.submit_time = now
             t.state = TaskState.SUBMITTED
@@ -281,15 +294,19 @@ class Dispatcher:
             for ob in t.outputs:
                 self.sizes[ob.oid] = ob.size_bytes
                 self._produced.add(ob.oid)
+            if rec is not None:
+                rec.emit("task_arrived", tid=t.tid)
             n += 1
-            if t.deps and self._hold_if_unready(t):
+            if t.deps and self._hold_if_unready(t, rec):
                 continue
             t.ready_time = now
             self._enqueue(t)
+        if n and self.metrics is not None:
+            self.metrics.inc("sched.tasks_submitted", n)
         return n
 
     # ---------------- DAG ready-set (DESIGN.md §11) -------------------------
-    def _hold_if_unready(self, t: Task) -> bool:
+    def _hold_if_unready(self, t: Task, rec) -> bool:
         """Hold ``t`` until its producers complete.  Returns True if held
         (or failed because a producer already terminally failed)."""
         unmet: set[str] = set()
@@ -301,6 +318,9 @@ class Dispatcher:
                 t.state = TaskState.FAILED
                 self.failed.append(t)
                 self._dep_failed.append(t)
+                if rec is not None:
+                    rec.emit("task_failed", tid=t.tid, reason="dep_failed",
+                             dep=d)
                 return True
             unmet.add(d)
         if not unmet:
@@ -308,6 +328,8 @@ class Dispatcher:
         self._held[t.tid] = unmet
         for d in unmet:
             self._dependents.setdefault(d, {})[t.tid] = None
+        if rec is not None:
+            rec.emit("task_held", tid=t.tid, n_deps=len(unmet))
         return True
 
     def _release_dependents(self, tid: str, now: float) -> None:
@@ -318,6 +340,7 @@ class Dispatcher:
         deps = self._dependents.pop(tid, None)
         if not deps:
             return
+        rec = self.recorder
         for dtid in deps:
             unmet = self._held.get(dtid)
             if unmet is None:
@@ -328,11 +351,14 @@ class Dispatcher:
             del self._held[dtid]
             dt = self.tasks[dtid]
             dt.ready_time = now
+            if rec is not None:
+                rec.emit("task_ready", tid=dtid)
             self._enqueue(dt)
 
     def _fail_dependents(self, tid: str) -> None:
         """A producer terminally failed: its held dependents (transitively)
         can never run -- fail them now so engines don't wait forever."""
+        rec = self.recorder
         stack = [tid]
         while stack:
             cur = stack.pop()
@@ -343,6 +369,9 @@ class Dispatcher:
                 dt.state = TaskState.FAILED
                 self.failed.append(dt)
                 self._dep_failed.append(dt)
+                if rec is not None:
+                    rec.emit("task_failed", tid=dtid, reason="dep_failed",
+                             dep=cur)
                 stack.append(dtid)
 
     def drain_dep_failed(self) -> list[Task]:
@@ -357,6 +386,8 @@ class Dispatcher:
 
     # ---------------- incremental hint maintenance --------------------------
     def _enqueue(self, t: Task, front: bool = False) -> None:
+        if self.recorder is not None:
+            self.recorder.emit("task_queued", tid=t.tid, front=front)
         if front:
             self.queue.appendleft(t)
         else:
@@ -632,6 +663,8 @@ class Dispatcher:
         t.state = TaskState.DISPATCHED
         t.executor = eid
         t.dispatch_time = now
+        if self.recorder is not None:
+            self.recorder.emit("task_dispatched", tid=t.tid, eid=eid)
         return Dispatch(task=t, executor=eid, hints=t.location_hints)
 
     # ---------------- completion -------------------------------------------
@@ -645,9 +678,12 @@ class Dispatcher:
             st.last_busy_at = now
         cancel: Optional[str] = None
         orig_tid = self._twins.pop(t.tid, None)
+        rec = self.recorder
         if ok:
             t.state = TaskState.DONE
             t.end_time = now
+            if rec is not None:
+                rec.emit("task_done", tid=t.tid, eid=eid)
             self.durations.append(now - t.dispatch_time)
             if orig_tid is not None:
                 # a speculative twin won; cancel the original
@@ -667,6 +703,8 @@ class Dispatcher:
                 self._speculated.discard(t.tid)
             self.completed.append(t)
             self._release_dependents(t.tid, now)
+            if self.metrics is not None:
+                self.metrics.inc("sched.tasks_completed")
         else:
             if orig_tid is not None:
                 self._twins[t.tid] = orig_tid  # still a live twin; retry below
@@ -674,6 +712,11 @@ class Dispatcher:
             if t.attempts >= t.max_attempts:
                 t.state = TaskState.FAILED
                 self.failed.append(t)
+                if rec is not None:
+                    rec.emit("task_failed", tid=t.tid, eid=eid,
+                             attempts=t.attempts)
+                if self.metrics is not None:
+                    self.metrics.inc("sched.tasks_failed")
                 self._fail_dependents(t.tid)
                 if orig_tid is not None:
                     self._twins.pop(t.tid, None)
@@ -681,6 +724,9 @@ class Dispatcher:
                     self._speculated.discard(orig_tid)
             else:
                 t.reset_for_retry()
+                if rec is not None:
+                    rec.emit("task_requeued", tid=t.tid, eid=eid,
+                             reason="retry")
                 self._enqueue(t, front=True)
         if cancel is not None and cancel in self.queue:
             # the losing copy never left the wait queue: dequeue it now so it

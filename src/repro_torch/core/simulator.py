@@ -28,9 +28,9 @@ changes are sampled into ``pool_log`` for the workload metrics layer).
 
 Counterpart of ``repro.core.simulator``: every heap tie-break and every
 ``random.Random`` draw happens in the reference's order, so a run's report
-equals the reference's exactly.  The simulator moves no tensors; it is the
-host-side model the threaded runtime on the card is compared with.  The
-reference's lifecycle recorder and telemetry hooks are not part of it.
+equals the reference's exactly, and so does its lifecycle event stream when
+a recorder is installed.  The simulator moves no tensors; it is the
+host-side model the threaded runtime on the card is compared with.
 """
 from __future__ import annotations
 
@@ -86,6 +86,13 @@ class SimConfig:
     seed: int = 0
     executor_slowdown: dict[str, float] = field(default_factory=dict)
     fail_at: dict[str, float] = field(default_factory=dict)
+    # optional repro_torch.obs.Recorder (lifecycle events on the simulated
+    # clock); None = recording off, zero hot-path cost
+    recorder: Optional[object] = None
+    # optional repro_torch.obs.metrics.Telemetry bundle; samples are taken
+    # on the simulated clock every ``metrics.interval_s`` virtual seconds
+    # (same free-when-off contract as the recorder; DESIGN.md §13)
+    metrics: Optional[object] = None
 
 
 @dataclass
@@ -150,6 +157,17 @@ class DiffusionSim:
         self.dispatch_cpu = FifoServer(self.loop, tb.dispatch_service_s)
         self.dispatcher = Dispatcher(
             cfg.policy, speculation_factor=cfg.speculation_factor)
+        self.recorder = cfg.recorder
+        if self.recorder is not None:
+            # events are stamped on the simulated clock, so sim and runtime
+            # traces line up phase-for-phase (not second-for-second)
+            self.recorder.clock = lambda: self.loop.now
+            self.dispatcher.recorder = self.recorder
+        self.telemetry = cfg.metrics
+        self.metrics = cfg.metrics.registry if cfg.metrics is not None else None
+        self.dispatcher.metrics = self.metrics
+        if cfg.provisioner is not None:
+            cfg.provisioner.metrics = self.metrics
         self.nodes: dict[str, SimNodeRes] = {}
         self.store_catalog: dict[str, DataObject] = {}
         self._rng = random.Random(cfg.seed)
@@ -176,11 +194,17 @@ class DiffusionSim:
             self.loop.after(cfg.provisioner_period_s, self._provision_tick)
         if cfg.speculation_factor > 0:
             self.loop.after(1.0, self._speculation_tick)
+        self._metrics_tick_live = False
+        if self.telemetry is not None:
+            self._metrics_tick_live = True
+            self.loop.after(self.telemetry.interval_s, self._metrics_tick)
 
     # ------------- membership -------------------------------------------------
     def _log_pool(self, now: float) -> None:
         live = sum(1 for n in self.nodes.values() if n.alive)
         self.pool_log.append((now, live))
+        if self.recorder is not None:
+            self.recorder.emit("pool", t=now, size=live)
 
     def _add_node(self, now: float) -> str:
         tb = self.cfg.testbed
@@ -272,6 +296,9 @@ class DiffusionSim:
         if self.cfg.provisioner is not None and not self._prov_tick_live:
             self._prov_tick_live = True
             self.loop.after(self.cfg.provisioner_period_s, self._provision_tick)
+        if self.telemetry is not None and not self._metrics_tick_live:
+            self._metrics_tick_live = True
+            self.loop.after(self.telemetry.interval_s, self._metrics_tick)
         self._pump(self.loop.now)
 
     def submit_workload(self, wl) -> int:
@@ -308,6 +335,15 @@ class DiffusionSim:
     # ------------- scheduling pump -----------------------------------------------
     def _pump(self, now: float) -> None:
         dispatches = self.dispatcher.next_dispatches(now)
+        if self.recorder is not None:
+            self.recorder.emit("pump", t=now, n=len(dispatches),
+                               queue=self.dispatcher.queue_len)
+        if self.metrics is not None:
+            # no pump-latency histogram here: virtual time has no meaningful
+            # dispatcher CPU hold (the FifoServer models it explicitly)
+            self.metrics.inc("sched.pump_calls")
+            if dispatches:
+                self.metrics.inc("sched.dispatches", len(dispatches))
         for disp in dispatches:
             cost = self.cfg.testbed.dispatch_service_s
             if self.cfg.policy.ships_hints:
@@ -361,6 +397,9 @@ class DiffusionSim:
             self.local_hits += 1
             t.cache_hits += 1
             t.bytes_local += size
+            if self.recorder is not None:
+                self.recorder.emit("input", t=now, tid=t.tid, eid=node.eid,
+                                   oid=oid, source="local", bytes=size)
             fid = self.net.start(
                 size, (node.disk_read,),
                 lambda tt, t=t, n=node, o=oid, f=nxt: (n.cache.unpin(o), f(tt)),
@@ -380,6 +419,10 @@ class DiffusionSim:
             self.peer_hits += 1
             t.peer_hits += 1
             t.bytes_cache_to_cache += size
+            if self.recorder is not None:
+                self.recorder.emit("input", t=now, tid=t.tid, eid=node.eid,
+                                   oid=oid, source="peer", bytes=size,
+                                   peer=src.eid)
             tb = self.cfg.testbed
 
             def done_peer(tt, t=t, n=node, o=oid, s=src, sz=size, f=nxt):
@@ -396,6 +439,9 @@ class DiffusionSim:
         # persistent store read
         self.store_reads += 1
         t.bytes_store += size
+        if self.recorder is not None:
+            self.recorder.emit("input", t=now, tid=t.tid, eid=node.eid,
+                               oid=oid, source="store", bytes=size)
         tb = self.cfg.testbed
 
         def done_store(tt, t=t, n=node, o=oid, sz=size, f=nxt):
@@ -446,6 +492,8 @@ class DiffusionSim:
         if self._task_gen.get(t.tid, 0) != gen:
             return
         t.state = TaskState.RUNNING
+        if self.recorder is not None:
+            self.recorder.emit("exec_start", t=now, tid=t.tid, eid=node.eid)
         dt = (t.compute_seconds + self.cfg.testbed.task_overhead_s) * node.slowdown
         self.loop.after(dt, lambda tt, t=t, n=node, g=gen: self._write_outputs(t, n, 0, g, tt))
 
@@ -480,6 +528,9 @@ class DiffusionSim:
             self.dispatcher.sizes[ob.oid] = ob.size_bytes
         self._task_flows.pop(t.tid, None)
         self._t_last_complete = now
+        if self.recorder is not None:
+            self.recorder.emit("exec_end", t=now, tid=t.tid, eid=node.eid,
+                               ok=True)
         cancel_tid = self.dispatcher.task_finished(t, now, ok=True)
         if cancel_tid is not None:
             self._cancel_task(cancel_tid)
@@ -525,6 +576,42 @@ class DiffusionSim:
         self._add_node(now)
         self._log_pool(now)
         self._pump(now)
+
+    def sample_metrics(self) -> None:
+        """Refresh telemetry gauges from current sim state (virtual time)."""
+        m = self.metrics
+        if m is None:
+            return
+        live = [n for n in self.nodes.values() if n.alive]
+        m.gauge_set("sched.queue_depth", self.dispatcher.queue_len)
+        m.gauge_set("pool.size", len(live))
+        m.gauge_set("cache.bytes", sum(n.cache.used_bytes for n in live))
+        m.gauge_set("cache.hits", sum(n.cache.stats.hits for n in live))
+        m.gauge_set("cache.misses", sum(n.cache.stats.misses for n in live))
+        m.gauge_set("cache.evictions",
+                    sum(n.cache.stats.evictions for n in live))
+        m.gauge_set("cache.insertions",
+                    sum(n.cache.stats.insertions for n in live))
+        m.gauge_set("cache.readmits",
+                    sum(n.cache.stats.readmits for n in live))
+        b = self.net.bytes_by_kind
+        m.gauge_set("bw.bytes_local", int(b.get("local", 0)))
+        m.gauge_set("bw.bytes_c2c", int(b.get("c2c", 0)))
+        m.gauge_set("bw.bytes_store", int(b.get("store_read", 0)))
+        if self.recorder is not None:
+            m.gauge_set("obs.recorder_dropped", self.recorder.dropped)
+
+    def _metrics_tick(self, now: float) -> None:
+        tel = self.telemetry
+        assert tel is not None
+        self.sample_metrics()
+        tel.record_sample(now)
+        # park when the run drained (mirrors the provisioner tick); submit()
+        # resurrects it
+        if not (self.loop.empty and self.dispatcher.queue_len == 0):
+            self.loop.after(tel.interval_s, self._metrics_tick)
+        else:
+            self._metrics_tick_live = False
 
     def _speculation_tick(self, now: float) -> None:
         for t in self.dispatcher.speculation_candidates(now):

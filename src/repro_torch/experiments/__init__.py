@@ -28,14 +28,14 @@ Quick use::
     report_rt = run_experiment(spec, engine=RuntimeEngine(device="cuda"))
     report_sim.diff(report_rt)     # field-by-field, shared schema
 """
-from .engines import (ENGINES, Engine, RuntimeEngine, SimEngine,
-                      build_provisioner, build_sim_config, build_workload,
-                      engine_names, make_engine, resolve_task_fn,
-                      run_experiment)
+from .engines import (ENGINES, LAZY_ENGINES, Engine, RuntimeEngine,
+                      SimEngine, build_provisioner, build_recorder,
+                      build_sim_config, build_workload, engine_names,
+                      make_engine, resolve_task_fn, run_experiment)
 from .report import IDENTITY_FIELDS, RunReport, build_report
 from .spec import (ALIASES, DOCUMENTED_DIVERGENCES, CacheSpec, ClusterSpec,
-                   ExperimentSpec, ProvisionerSpec, WorkloadSpec,
-                   check_alias_map, with_overrides)
+                   ExperimentSpec, ObserveSpec, ProvisionerSpec,
+                   WorkloadSpec, check_alias_map, with_overrides)
 from .sweep import Sweep, SweepCell, load_results
 
 __all__ = [
@@ -47,6 +47,8 @@ __all__ = [
     "Engine",
     "ExperimentSpec",
     "IDENTITY_FIELDS",
+    "LAZY_ENGINES",
+    "ObserveSpec",
     "ProvisionerSpec",
     "RunReport",
     "RuntimeEngine",
@@ -55,6 +57,7 @@ __all__ = [
     "SweepCell",
     "WorkloadSpec",
     "build_provisioner",
+    "build_recorder",
     "build_report",
     "build_sim_config",
     "build_workload",

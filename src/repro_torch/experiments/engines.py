@@ -3,8 +3,10 @@
   SimEngine      discrete-event `DiffusionSim` (simulated clock)
   RuntimeEngine  threaded `DiffusionRuntime` (wall clock, real payloads),
                  its executor caches on ``device`` (default ``"cuda"``)
+  serve          `repro_torch.serve.diffusion.ServeDiffusionEngine`, the
+                 runtime engine with serving's checks (``LAZY_ENGINES``)
 
-Counterpart of ``repro.experiments.engines`` for those two engines.  Both
+Counterpart of ``repro.experiments.engines`` for those engines.  All
 follow the same protocol -- ``prepare(spec)`` builds the engine and binds
 the workload, ``run()`` executes and returns a :class:`RunReport` -- and
 both funnel their observables through ``MetricsCollector`` via a
@@ -41,8 +43,10 @@ from repro_torch.core.provisioner import (AllocationPolicy,
 from repro_torch.core.runtime import SHAPE_ONLY_PAYLOAD, DiffusionRuntime
 from repro_torch.core.simulator import DiffusionSim, SimConfig, SimResult
 from repro_torch.core.testbeds import TESTBEDS
+from repro_torch.obs import Recorder, outcome_record
 from repro_torch.workloads import (ARRIVALS, POPULARITY, MetricsCollector,
-                                   Workload, build_dag, generate)
+                                   Workload, build_dag, build_sessions,
+                                   generate, replay)
 
 from .report import RunReport, build_report
 from .spec import (ExperimentSpec, ProvisionerSpec, WorkloadSpec,
@@ -50,11 +54,15 @@ from .spec import (ExperimentSpec, ProvisionerSpec, WorkloadSpec,
 
 
 def build_workload(wspec: WorkloadSpec) -> Workload:
-    """Materialise the workload a spec binds: the DAG recipe, or the
+    """Materialise the workload a spec binds: replay its trace, or run the
     generator recipe (bit-identical to calling ``workloads.generate`` with
     the same arguments -- the binding dicts ARE constructor kwargs)."""
+    if wspec.trace_path is not None:
+        return replay(wspec.trace_path)
     if wspec.dag is not None:
         return build_dag(wspec.dag, name=wspec.name)
+    if wspec.sessions is not None:
+        return build_sessions(wspec.sessions, name=wspec.name)
     arr = ARRIVALS[wspec.arrivals["kind"]](
         **{k: v for k, v in wspec.arrivals.items() if k != "kind"})
     pop = POPULARITY[wspec.popularity["kind"]](
@@ -111,6 +119,55 @@ def build_sim_config(spec: ExperimentSpec,
         seed=spec.seed)
 
 
+def build_recorder(spec: ExperimentSpec) -> Optional[Recorder]:
+    """The engine-side half of ``spec.observe``: None with events off (the
+    hot paths then carry only a None-check), a bounded drop-oldest ring
+    otherwise.  Both adapters install the same object on their dispatcher,
+    runtime/sim and provisioner, so one ring holds the whole run."""
+    if not spec.observe.events:
+        return None
+    return Recorder(spec.observe.ring_capacity)
+
+
+def build_telemetry(spec: ExperimentSpec):
+    """The engine-side half of ``spec.observe.metrics_*`` (DESIGN.md §13):
+    None with telemetry off, otherwise a `Telemetry` bundle with a
+    `HealthMonitor` attached.  Engines hand ``bundle.registry`` to the hot
+    paths and call ``record_sample`` on their own clock."""
+    if not spec.observe.metrics:
+        return None
+    from repro_torch.obs import HealthMonitor, Telemetry
+
+    return Telemetry(interval_s=spec.observe.metrics_interval_s,
+                     sink_path=spec.observe.metrics_sink_path,
+                     health=HealthMonitor())
+
+
+def _telemetry_summary(telemetry, recorder: Optional[Recorder]) -> dict:
+    """The RunReport.telemetry payload: the final central snapshot, the
+    final per-host snapshots and their cluster fold, the health-event log,
+    and the recorder drop count.  ``recorder_dropped`` is included whenever
+    a recorder ran -- even with the metrics plane off -- so a truncated
+    event ring is never silent."""
+    out: dict = {}
+    if recorder is not None:
+        out["recorder_dropped"] = recorder.dropped
+    if telemetry is not None:
+        last = telemetry.series[-1] if telemetry.series else {}
+        out["metrics"] = last.get("metrics", {})
+        out["hosts"] = last.get("hosts", {})
+        out["merged"] = telemetry.merged_last()
+        out["n_samples"] = len(telemetry.series)
+        out["health_events"] = list(telemetry.health_events)
+    return out
+
+
+def _finish_observe(spec: ExperimentSpec, recorder: Optional[Recorder]) -> None:
+    """Post-run sink: dump the ring to ``observe.sink_path`` if bound."""
+    if recorder is not None and spec.observe.sink_path is not None:
+        recorder.dump(spec.observe.sink_path)
+
+
 def _reject(engine: str, knob: str, value, supported) -> None:
     raise ValueError(
         f"spec sets {knob}={value!r}, which the {engine} engine does not "
@@ -161,6 +218,10 @@ class SimEngine:
         self.provisioner: Optional[DynamicResourceProvisioner] = None
         self.result = None
         self.metrics = None
+        self.recorder: Optional[Recorder] = None
+        self.telemetry = None
+        self.tel_server = None
+        self.last_outcomes: Optional[list[dict]] = None
 
     def prepare(self, spec: ExperimentSpec,
                 workload: Optional[Workload] = None) -> "SimEngine":
@@ -170,9 +231,26 @@ class SimEngine:
                     "the runtime's loose-coherence knob "
                     "(sim uses index_update_interval_s)")
         self.spec = spec
+        self.recorder = build_recorder(spec)
         self.provisioner = (build_provisioner(spec.provisioner)
                             if spec.provisioner else None)
         self.cfg = build_sim_config(spec, self.provisioner)
+        # installed on the config BEFORE construction: the sim ctor swaps
+        # the recorder clock to the simulated clock and hands the recorder
+        # to its dispatcher
+        self.cfg.recorder = self.recorder
+        if self.provisioner is not None:
+            self.provisioner.recorder = self.recorder
+        # telemetry rides the same pre-construction path: the sim ctor
+        # installs the registry on its dispatcher/provisioner and schedules
+        # the virtual-time sampling tick
+        self.telemetry = build_telemetry(spec)
+        self.cfg.metrics = self.telemetry
+        if self.telemetry is not None and spec.observe.metrics_port >= 0:
+            from repro_torch.obs import TelemetryServer
+
+            self.tel_server = TelemetryServer(self.telemetry,
+                                              port=spec.observe.metrics_port)
         self.sim = DiffusionSim(self.cfg)
         self.workload = workload if workload is not None \
             else build_workload(spec.workload)
@@ -189,14 +267,33 @@ class SimEngine:
         m = MetricsCollector(tb, cpus_per_node=self.cfg.cpus_per_node).collect(
             r, n_submitted=self.sim.n_submitted)
         self.result, self.metrics = r, m
+        # measured (here: simulated) per-task outcomes -- sim clocks are
+        # already run-relative, no rebasing
+        self.last_outcomes = [outcome_record(t) for t in r.dispatcher.completed]
+        _finish_observe(self.spec, self.recorder)
+        telemetry = None
+        if self.telemetry is not None:
+            # one settled final sample at the virtual end time, so the
+            # report's snapshot reconciles exactly with the run's totals
+            self.sim.sample_metrics()
+            self.telemetry.record_sample(self.sim.loop.now)
+            telemetry = _telemetry_summary(self.telemetry, self.recorder)
+            self.telemetry.close()
+        elif self.recorder is not None:
+            telemetry = _telemetry_summary(None, self.recorder)
         prov = self.provisioner
         return build_report(
             self.spec, self.name, r, m, wall_s=wall,
             n_allocated=prov.n_allocated if prov else 0,
-            n_released=prov.n_released if prov else 0)
+            n_released=prov.n_released if prov else 0,
+            telemetry=telemetry)
 
     def shutdown(self) -> None:
-        """Nothing to release: the event loop owns no threads."""
+        """Close the status endpoint if one was bound (the event loop owns
+        no threads of its own)."""
+        if self.tel_server is not None:
+            self.tel_server.close()
+            self.tel_server = None
 
 
 class _ProvisionerDriver(threading.Thread):
@@ -244,6 +341,33 @@ class _ProvisionerDriver(threading.Thread):
         self.stop_evt.set()
 
 
+class _TelemetrySampler(threading.Thread):
+    """Wall-clock telemetry tick for the threaded runtime (counterpart of
+    `DiffusionSim._metrics_tick`): every ``telemetry.interval_s`` it
+    refreshes the runtime's gauges, lets the engine add its own
+    (`_engine_gauges`), and records one sample stamped in run-relative
+    seconds."""
+
+    def __init__(self, eng: "RuntimeEngine", t0: float) -> None:
+        super().__init__(daemon=True, name="telemetry-sampler")
+        self.eng = eng
+        self.t0 = t0
+        self.stop_evt = threading.Event()
+
+    def sample_once(self) -> None:
+        eng = self.eng
+        eng.runtime.sample_metrics()
+        eng._engine_gauges()
+        eng.telemetry.record_sample(time.monotonic() - self.t0)
+
+    def run(self) -> None:
+        while not self.stop_evt.wait(self.eng.telemetry.interval_s):
+            self.sample_once()
+
+    def stop(self) -> None:
+        self.stop_evt.set()
+
+
 class RuntimeEngine:
     """Threaded-runtime adapter.  ``run()`` paces the workload in (see
     `DiffusionRuntime.submit_workload`), drains it, and reports in wall
@@ -268,6 +392,11 @@ class RuntimeEngine:
         self._driver: Optional[_ProvisionerDriver] = None
         self.result = None
         self.metrics = None
+        self.recorder: Optional[Recorder] = None
+        self.telemetry = None
+        self.tel_server = None
+        self._sampler: Optional[_TelemetrySampler] = None
+        self.last_outcomes: Optional[list[dict]] = None
 
     @property
     def provision_failures(self) -> list[str]:
@@ -298,6 +427,13 @@ class RuntimeEngine:
             _reject("runtime", "speculation_factor", spec.speculation_factor,
                     "0.0 (no speculative twins in the threaded runtime)")
         self.spec = spec
+        self.recorder = build_recorder(spec)
+        self.telemetry = build_telemetry(spec)
+        if self.telemetry is not None and spec.observe.metrics_port >= 0:
+            from repro_torch.obs import TelemetryServer
+
+            self.tel_server = TelemetryServer(self.telemetry,
+                                              port=spec.observe.metrics_port)
         self.runtime = DiffusionRuntime(
             n_executors=spec.cluster.n_nodes,
             policy=DispatchPolicy(spec.policy),
@@ -306,6 +442,8 @@ class RuntimeEngine:
                                   if spec.cache.enabled else 0),
             seed=spec.seed,
             index_update_batch=spec.index_update_batch,
+            recorder=self.recorder,
+            metrics=self.telemetry,
             device=self.device)
         self.workload = workload if workload is not None \
             else build_workload(spec.workload)
@@ -336,10 +474,14 @@ class RuntimeEngine:
             self.provisioner = build_provisioner(dataclasses.replace(
                 ps, idle_timeout_s=ps.idle_timeout_s * ts,
                 trigger_cooldown_s=ps.trigger_cooldown_s * ts))
+            self.provisioner.recorder = self.recorder
             self._driver = _ProvisionerDriver(rt, self.provisioner,
                                               ps.period_s * ts)
             self._driver.start()
         t0 = time.monotonic()
+        if self.telemetry is not None:
+            self._sampler = _TelemetrySampler(self, t0)
+            self._sampler.start()
         submitter = rt.submit_workload(
             self.workload, task_fn=task_fn,
             payload_factory=payload_factory, time_scale=time_scale,
@@ -350,6 +492,9 @@ class RuntimeEngine:
         if self._driver is not None:
             self._driver.stop()
             self._driver.join(5.0)
+        if self._sampler is not None:
+            self._sampler.stop()
+            self._sampler.join(5.0)
         if not drained:
             rt.shutdown()
             raise TimeoutError(
@@ -361,12 +506,30 @@ class RuntimeEngine:
         m = MetricsCollector(tb, cpus_per_node=1).collect(
             r, n_submitted=len(self.workload))
         self.result, self.metrics = r, m
+        # measured per-task outcomes, rebased from the monotonic clock to
+        # seconds since run() started (same base as _result_view)
+        self.last_outcomes = [outcome_record(t, base=t0)
+                              for t in rt.dispatcher.completed]
+        _finish_observe(self.spec, self.recorder)
+        telemetry = None
+        if self.telemetry is not None:
+            # one settled final sample after the drain
+            self._sampler.sample_once()
+            telemetry = _telemetry_summary(self.telemetry, self.recorder)
+            self.telemetry.close()
+        elif self.recorder is not None:
+            telemetry = _telemetry_summary(None, self.recorder)
         prov = self.provisioner
         return build_report(
             self.spec, self.name, r, m, wall_s=wall,
             n_allocated=prov.n_allocated if prov else 0,
             n_released=prov.n_released if prov else 0,
-            dispatch_stats=rt.dispatch_stats())
+            dispatch_stats=rt.dispatch_stats(),
+            telemetry=telemetry)
+
+    def _engine_gauges(self) -> None:
+        """Subclass hook: extra engine-specific gauges per telemetry tick
+        (the serve engine reports its KV-reuse byte split here)."""
 
     def _result_view(self, t_run0: float, t_end: float) -> SimResult:
         """The runtime's observables in `SimResult` shape, with every clock
@@ -399,6 +562,11 @@ class RuntimeEngine:
     def shutdown(self) -> None:
         if self._driver is not None:
             self._driver.stop()
+        if self._sampler is not None:
+            self._sampler.stop()
+        if self.tel_server is not None:
+            self.tel_server.close()
+            self.tel_server = None
         if self.runtime is not None:
             self.runtime.shutdown()
 
@@ -406,15 +574,26 @@ class RuntimeEngine:
 #: engine registry (the sweep runner binds engines by name)
 ENGINES: dict[str, type] = {"sim": SimEngine, "runtime": RuntimeEngine}
 
+#: engines living outside repro_torch.experiments, resolved on first use --
+#: repro_torch.serve.diffusion imports back into this module, so
+#: registering its class eagerly would be a cycle.  Value = (module, class
+#: name).
+LAZY_ENGINES: dict[str, tuple[str, str]] = {
+    "serve": ("repro_torch.serve.diffusion", "ServeDiffusionEngine"),
+}
+
 
 def engine_names() -> list[str]:
     """Every engine name make_engine accepts."""
-    return sorted(ENGINES)
+    return sorted([*ENGINES, *LAZY_ENGINES])
 
 
 def make_engine(name: str):
     if name in ENGINES:
         return ENGINES[name]()
+    if name in LAZY_ENGINES:
+        module, cls = LAZY_ENGINES[name]
+        return getattr(importlib.import_module(module), cls)()
     raise ValueError(f"unknown engine {name!r} (known: {engine_names()})")
 
 

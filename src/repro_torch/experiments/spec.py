@@ -11,15 +11,20 @@ frozen dataclass tree --
   policy        dispatch policy (the paper's four, by value string)
   provisioner   DRP knobs, or None for a fixed pool
   workload      EITHER a generator binding (arrival-process + popularity
-                specs, ``{"kind": ClassName, ...}`` dicts) OR a DAG binding
+                specs, the same ``{"kind": ClassName, ...}`` dicts the
+                trace header records) OR a JSONL ``trace_path`` OR a DAG
+                binding OR a sessions binding
   seed          engine seed (cache RNGs, peer choice)
+  observe       lifecycle-event recording and the telemetry plane
+                (``repro_torch.obs``), off by default
 
 -- with strict JSON round-tripping: ``from_dict(to_dict(s)) == s`` bit-for-
 bit, and unknown fields hard-error at every nesting level (a half-applied
 spec silently skews every number downstream of it).  Field names, defaults
-and validation are the reference's; its fleet and observability fields are
-not part of this spec (``repro_torch.convert.spec_from_json`` accepts them
-at their defaults).
+and validation are the reference's; its four fleet fields (``hosts``,
+``threads_per_host``, ``wire_batch``, ``local_dispatch``) are not part of
+this spec (``repro_torch.convert.spec_from_json`` accepts them at their
+defaults).
 
 Alias map.  ``ALIASES`` documents, for every spec field, the engine-side
 parameter it binds to, and ``DOCUMENTED_DIVERGENCES`` records where the raw
@@ -41,7 +46,7 @@ from repro_torch.core.cache import EvictionPolicy
 from repro_torch.core.policies import DispatchPolicy
 from repro_torch.core.provisioner import AllocationPolicy
 from repro_torch.core.testbeds import TESTBEDS
-from repro_torch.workloads import ARRIVALS, DAGS, POPULARITY
+from repro_torch.workloads import ARRIVALS, DAGS, POPULARITY, SESSIONS
 
 
 # --------------------------------------------------------------------------
@@ -104,18 +109,28 @@ class ProvisionerSpec:
 
 @dataclass(frozen=True)
 class WorkloadSpec:
-    """Workload binding: a generator recipe OR a DAG recipe.
+    """Workload binding: a generator recipe, a DAG recipe, a session
+    recipe, OR a recorded JSONL trace -- exactly one of the four.
 
-    Generator binding uses ``{"kind": ClassName, ...ctor kwargs}`` dicts
-    against the ``ARRIVALS`` / ``POPULARITY`` registries.
-    ``object_prefix`` names synthetic catalog objects ``{prefix}{i}``; when
-    None the generator's own ``{name}.o{i}`` scheme applies.
+    Generator binding uses the same ``{"kind": ClassName, ...ctor kwargs}``
+    dicts that :meth:`ArrivalProcess.spec` / :meth:`PopularityModel.spec`
+    emit into trace headers, so a trace header's spec block is itself a
+    valid binding.  ``object_prefix`` names synthetic catalog objects
+    ``{prefix}{i}`` (matching ``repro_torch.core.make_objects``); when None
+    the generator's own ``{name}.o{i}`` scheme applies.
 
     ``dag`` binds a structured-pipeline recipe the same way:
     ``{"kind": "all_pairs" | "reduce_tree" | "stacking_pyramid",
-    ...ctor kwargs}`` against the ``DAGS`` registry.  The flat generator
-    knobs are meaningless for a DAG -- shape comes from the binding -- so
-    non-default values hard-error rather than being dropped.
+    ...ctor kwargs}`` against the ``repro_torch.workloads.DAGS`` registry
+    (a DAG Workload's own ``spec`` dict is itself a valid binding).  The flat
+    generator knobs are meaningless for a DAG -- shape comes from the
+    binding -- so non-default values hard-error rather than being dropped.
+
+    ``sessions`` binds a multi-turn serving workload the same way:
+    ``{"kind": "chat", ...SessionModel kwargs}`` against the
+    ``repro_torch.workloads.SESSIONS`` registry (a session Workload's own
+    ``spec`` dict is itself a valid binding).  Same dead-knob rule as
+    trace/dag bindings.
     """
 
     name: str = "wl"
@@ -129,28 +144,52 @@ class WorkloadSpec:
     output_bytes: int = 0
     store_metadata_ops: int = 0
     seed: int = 0
+    trace_path: Optional[str] = None
     dag: Optional[dict] = None
+    sessions: Optional[dict] = None
 
     def __post_init__(self) -> None:
-        generator = self.arrivals is not None or self.popularity is not None
-        if self.dag is not None:
-            if generator:
-                raise ValueError("workload binds EXACTLY ONE of dag or a "
-                                 "generator (arrivals+popularity)")
+        generator = self.arrivals if self.arrivals is not None \
+            else self.popularity
+        n_bindings = sum(b is not None for b in (self.trace_path, self.dag,
+                                                 self.sessions, generator))
+        if n_bindings > 1:
+            raise ValueError("workload binds EXACTLY ONE of trace_path, dag, "
+                             "sessions, or a generator "
+                             "(arrivals+popularity)")
+        if (self.trace_path is not None or self.dag is not None
+                or self.sessions is not None):
+            # flat-generator knobs have no effect on a replayed trace, a
+            # DAG recipe, or a session recipe; accepting them would
+            # silently drop user intent (e.g. a seed "sweep" that replays
+            # the identical trace, or an n_tasks that a DAG's own shape
+            # parameters ignore)
             dead = [f.name for f in dataclasses.fields(self)
-                    if f.name not in ("name", "dag")
+                    if f.name not in ("name", "trace_path", "dag", "sessions",
+                                      "arrivals", "popularity")
                     and getattr(self, f.name) != f.default]
             if dead:
+                which = ("trace-bound" if self.trace_path is not None
+                         else "dag-bound" if self.dag is not None
+                         else "sessions-bound")
                 raise ValueError(
-                    f"dag-bound workload: generator field(s) {dead} would be "
-                    f"silently ignored (change them in the dag binding)")
-            if self.dag.get("kind") not in DAGS:
-                raise ValueError(f"unknown dag kind {self.dag.get('kind')!r} "
+                    f"{which} workload: generator field(s) {dead} "
+                    f"would be silently ignored (change them in the "
+                    f"trace / the dag / the sessions binding instead)")
+            if self.dag is not None and self.dag.get("kind") not in DAGS:
+                raise ValueError(f"unknown dag kind "
+                                 f"{self.dag.get('kind')!r} "
                                  f"(known: {sorted(DAGS)})")
+            if self.sessions is not None \
+                    and self.sessions.get("kind") not in SESSIONS:
+                raise ValueError(f"unknown sessions kind "
+                                 f"{self.sessions.get('kind')!r} "
+                                 f"(known: {sorted(SESSIONS)})")
             return
         if self.arrivals is None or self.popularity is None:
-            raise ValueError("workload needs a dag binding or a generator "
-                             "binding (arrivals AND popularity)")
+            raise ValueError("workload needs a trace_path, a dag binding, a "
+                             "sessions binding, or a generator binding "
+                             "(arrivals AND popularity)")
         for label, d, registry in (("arrivals", self.arrivals, ARRIVALS),
                                    ("popularity", self.popularity, POPULARITY)):
             kind = d.get("kind")
@@ -161,6 +200,46 @@ class WorkloadSpec:
             raise ValueError("generator workloads need n_tasks > 0")
         if self.n_objects <= 0:
             raise ValueError("generator workloads need n_objects > 0")
+
+
+@dataclass(frozen=True)
+class ObserveSpec:
+    """Lifecycle-event recording (repro_torch.obs, DESIGN.md
+    §10).  Off by
+    default: the engines' hot paths carry only a None-check.  When on, the
+    engine installs a bounded `Recorder` (drop-oldest ring of
+    ``ring_capacity`` events) and, if ``sink_path`` is set, dumps the ring
+    to JSONL after the run."""
+
+    events: bool = False
+    sink_path: Optional[str] = None
+    ring_capacity: int = 65536
+    # live telemetry plane (DESIGN.md §13): periodic registry sampling,
+    # optional JSONL time-series sink, optional status endpoint port
+    # (0 = pick a free port when metrics are on; the engine exposes the
+    # bound address).  Same free-when-off stance as `events`.
+    metrics: bool = False
+    metrics_interval_s: float = 0.25
+    metrics_sink_path: Optional[str] = None
+    metrics_port: int = -1      # -1 = no endpoint; >= 0 = bind (0 = any)
+
+    def __post_init__(self) -> None:
+        if self.ring_capacity < 1:
+            raise ValueError("ring_capacity must be >= 1")
+        if self.sink_path is not None and not self.events:
+            raise ValueError("observe.sink_path requires observe.events "
+                             "(a sink with recording off would silently "
+                             "write an empty trace)")
+        if self.metrics_interval_s <= 0:
+            raise ValueError("metrics_interval_s must be > 0")
+        if self.metrics_sink_path is not None and not self.metrics:
+            raise ValueError("observe.metrics_sink_path requires "
+                             "observe.metrics (a sink with telemetry off "
+                             "would silently write an empty series)")
+        if self.metrics_port >= 0 and not self.metrics:
+            raise ValueError("observe.metrics_port requires observe.metrics "
+                             "(an endpoint with telemetry off would serve "
+                             "nothing)")
 
 
 @dataclass(frozen=True)
@@ -183,6 +262,8 @@ class ExperimentSpec:
     release_policy: str = "discard"         # sim: discard | rebalance
     flow_solver: str = "incremental"        # sim: incremental | naive
     speculation_factor: float = 0.0         # sim: straggler twins
+    # observability: lifecycle-event recording, engine-neutral
+    observe: ObserveSpec = field(default_factory=ObserveSpec)
 
     def __post_init__(self) -> None:
         DispatchPolicy(self.policy)         # raises on unknown value
@@ -233,6 +314,7 @@ _SUBSPECS: dict[tuple[type, str], type] = {
     (ExperimentSpec, "cluster"): ClusterSpec,
     (ExperimentSpec, "cache"): CacheSpec,
     (ExperimentSpec, "provisioner"): ProvisionerSpec,
+    (ExperimentSpec, "observe"): ObserveSpec,
 }
 
 
@@ -342,9 +424,12 @@ ALIASES: dict[str, tuple[Optional[str], Optional[str]]] = {
 }
 
 #: DiffusionRuntime ctor kwargs that deliberately have no spec field: the
-#: persistent store is data, not a knob, and the device is where a run
-#: happens, not part of the experiment's identity (RuntimeEngine takes it).
-RUNTIME_OPERATIONAL_KWARGS = frozenset({"store", "device"})
+#: persistent store is data, not a knob; the device is where a run happens,
+#: not part of the experiment's identity (RuntimeEngine takes it); recorder
+#: and metrics are the obs layer's injection points, built by the engine
+#: adapters from ``spec.observe``.
+RUNTIME_OPERATIONAL_KWARGS = frozenset({"store", "device", "recorder",
+                                        "metrics"})
 
 #: raw engine-side default disagreements the spec layer papers over by
 #: always passing explicit values.  check_alias_map() verifies these are
@@ -422,9 +507,12 @@ def check_alias_map() -> None:
             problems.append(f"{path}: documented divergence no longer "
                             f"exists; remove it from DOCUMENTED_DIVERGENCES")
     sim_covered = {s for s, _ in ALIASES.values() if s is not None}
-    # testbed/executor_slowdown/fail_at are sim-only experiment machinery
+    # testbed/executor_slowdown/fail_at are sim-only experiment machinery;
+    # recorder and metrics are the obs layer's injection points on BOTH
+    # engines, built by the engine adapters from spec.observe (not knobs a
+    # spec aliases).
     missing = set(sim) - sim_covered - {"testbed", "executor_slowdown",
-                                        "fail_at"}
+                                        "fail_at", "recorder", "metrics"}
     if missing:
         problems.append(f"SimConfig fields not covered by ALIASES: "
                         f"{sorted(missing)}")

@@ -1,0 +1,67 @@
+"""Low-overhead observability for both engines (counterpart of ``repro.obs``).
+
+Per-task lifecycle events (arrived -> queued -> dispatched -> per-input
+resolve -> exec start/end -> done/failed/requeued, plus pool, pump and
+provisioner transitions) recorded into a bounded ring buffer (`Recorder`),
+exported as Chrome-trace JSON (`export.chrome_trace`) and diffed
+task-by-task between a measured run and its simulator replay
+(`diff.diff_outcomes`).
+
+Recording is off by default and free when off: every hot-path hook is a
+``if recorder is not None`` guard.
+
+The live telemetry plane rides alongside: a lock-cheap `MetricsRegistry`
+(counters / gauges / fixed-bucket histograms with mergeable snapshots), the
+per-run `Telemetry` bundle with its JSONL time series, the `ClusterView`
+that folds per-host snapshots (fed by a multi-process fleet), a
+`HealthMonitor` evaluating window rules over the stream, and the
+`TelemetryServer` status endpoint.  Same free-when-off contract:
+``metrics is None`` unless the spec asks.
+
+Everything here runs on the host; the event stream, the traces and the
+snapshots equal the reference's for the same run.
+"""
+from .events import (
+    EVENT_SCHEMA_VERSION,
+    EVENT_KINDS,
+    LIFECYCLE_KINDS,
+    OUTCOME_FIELDS,
+    exec_index,
+    lifecycle_fingerprints,
+    outcome_record,
+)
+from .recorder import Recorder, load_events
+from .export import chrome_trace
+from .diff import (diff_outcomes, format_divergence, sim_replay_outcomes,
+                   sim_twin_spec)
+from .metrics import (METRICS_SCHEMA_VERSION, ClusterView, MetricsRegistry,
+                      Telemetry, TelemetryServer, fetch_telemetry,
+                      merge_snapshots, quantile, read_metrics)
+from .health import HealthMonitor
+
+__all__ = [
+    "EVENT_SCHEMA_VERSION",
+    "EVENT_KINDS",
+    "LIFECYCLE_KINDS",
+    "METRICS_SCHEMA_VERSION",
+    "OUTCOME_FIELDS",
+    "ClusterView",
+    "HealthMonitor",
+    "MetricsRegistry",
+    "Recorder",
+    "Telemetry",
+    "TelemetryServer",
+    "chrome_trace",
+    "diff_outcomes",
+    "exec_index",
+    "fetch_telemetry",
+    "format_divergence",
+    "lifecycle_fingerprints",
+    "load_events",
+    "merge_snapshots",
+    "outcome_record",
+    "quantile",
+    "read_metrics",
+    "sim_replay_outcomes",
+    "sim_twin_spec",
+]

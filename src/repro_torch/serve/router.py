@@ -2,9 +2,7 @@
 applied to serving replicas.
 
 A copy of the reference's ``repro.serve.router`` on the port's ``core``
-(cache, index, policies), kept line for line so both route alike; the
-reference's Dispatcher-twin regression lock (``serve/diffusion``) waits for
-the sessions slice.
+(cache, index, policies), kept line for line so both route alike.
 
 Mapping (DESIGN.md §2/§12): replica == executor, cached prefix-KV page ==
 cached file, request == task whose inputs are the block-aligned prefixes of
@@ -20,13 +18,13 @@ its prompt.  The four dispatch policies transfer verbatim:
 Scoring is delegated wholesale to
 :func:`repro_torch.core.policies.decide` -- the SAME pure function the
 Dispatcher's ``_dispatch_mcu`` reduces to for a single queued task -- so
-the router cannot drift from core policy semantics (in the reference,
-regression-locked against a real Dispatcher).  Tie-break order matches
-``_dispatch_mcu``: cached bytes descending, then overlap fraction, then
-queue position.  For ONE prompt the overlap-fraction denominator (the
-task's own input byte total) is the same at every replica, so that middle
-tie-break is vacuous here and ties fall through to position --
-``decide``'s first-max over replicas in registration order, exactly the
+the router cannot drift from core policy semantics (regression-locked by
+repro_torch.serve.diffusion.reference against a real Dispatcher).
+Tie-break order matches ``_dispatch_mcu``: cached bytes descending, then
+overlap fraction, then queue position.  For ONE prompt the overlap-fraction
+denominator (the task's own input byte total) is the same at every replica,
+so that middle tie-break is vacuous here and ties fall through to position
+-- ``decide``'s first-max over replicas in registration order, exactly the
 dispatcher's ``_exec_order``.
 
 Sizing: each prefix-chain oid is ONE KV *page* of ``block *
@@ -153,7 +151,8 @@ class PrefixAwareRouter:
         """Brute-force replica -> cached-input-bytes for ``prompt``,
         rebuilt from fresh index lookups -- the router-side analogue of
         ``Dispatcher.reference_scores()`` and the oracle the regression
-        lock compares against."""
+        lock (repro_torch.serve.diffusion.reference, tests) compares
+        against."""
         scores = {rid: 0 for rid in self._order}
         for oid in dict.fromkeys(prefix_chain(prompt, self.block)):
             sz = self.sizes.get(oid, 1)

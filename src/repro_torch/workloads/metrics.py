@@ -84,6 +84,33 @@ class RunMetrics:
         return asdict(self)
 
 
+def quantile(values: Sequence[float], q: float) -> float:
+    """Linear-interpolation quantile of an (unsorted) sequence; 0.0 when
+    empty.  Deterministic -- identical inputs give bit-identical output."""
+    if not values:
+        return 0.0
+    s = sorted(values)
+    if len(s) == 1:
+        return s[0]
+    pos = q * (len(s) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(s) - 1)
+    return s[lo] + (s[hi] - s[lo]) * (pos - lo)
+
+
+def latency_quantiles(values: Sequence[float]) -> dict:
+    """Summary distribution for a latency (or latency-error) sample: the
+    shape `repro_torch.obs.diff` reports per lifecycle phase."""
+    return {
+        "p50": quantile(values, 0.50),
+        "p90": quantile(values, 0.90),
+        "p99": quantile(values, 0.99),
+        "mean": sum(values) / len(values) if values else 0.0,
+        "max": max(values) if values else 0.0,
+        "n": len(values),
+    }
+
+
 def _ideal_task_seconds(task, sizes: dict[str, int], tb: TestbedSpec) -> float:
     """Best-case duration: warm local cache, idle node, no queueing."""
     in_bytes = sum(sizes.get(oid, 0) for oid in task.inputs)

@@ -31,11 +31,9 @@ from repro_torch.experiments import spec as spec_mod
 ROOT = Path(__file__).resolve().parents[1]
 MB = 10**6
 
-#: the reference's fleet and observability fields, which the port's spec
-#: does not keep (convert.spec_from_json takes them at their defaults)
-FLEET_AND_OBSERVE = ("hosts", "threads_per_host", "wire_batch",
-                     "local_dispatch", "observe")
-WORKLOAD_ONLY_IN_REFERENCE = ("trace_path", "sessions")
+#: the reference's fleet fields, which the port's spec does not keep
+#: (convert.spec_from_json takes them at their defaults)
+FLEET = ("hosts", "threads_per_host", "wire_batch", "local_dispatch")
 
 BASE = ExperimentSpec(
     name="base",
@@ -55,10 +53,8 @@ BASE = ExperimentSpec(
 def _reference_dict(spec) -> dict:
     """A reference spec's dict without the fields the port does not keep."""
     d = spec.to_dict()
-    for k in FLEET_AND_OBSERVE:
+    for k in FLEET:
         d.pop(k)
-    for k in WORKLOAD_ONLY_IN_REFERENCE:
-        d["workload"].pop(k)
     return d
 
 
@@ -199,13 +195,15 @@ def test_spec_from_json_takes_provisioner_and_sim_knobs(tmp_path):
 
 
 def test_engine_registry():
-    assert engine_names() == ["runtime", "sim"]
+    assert engine_names() == ["runtime", "serve", "sim"]
+    assert engine_names() == jax_exp.engine_names()
     assert isinstance(make_engine("sim"), SimEngine)
     assert isinstance(make_engine("runtime"), RuntimeEngine)
+    assert isinstance(make_engine("serve"), RuntimeEngine)
     assert isinstance(SimEngine(), Engine)
     assert isinstance(RuntimeEngine(device="cpu"), Engine)
     with pytest.raises(ValueError, match="unknown engine"):
-        make_engine("serve")
+        make_engine("fleet")
 
 
 def test_run_experiment_equals_reference_on_the_simulator():
@@ -268,8 +266,9 @@ def test_quickstart_prints_the_reference_stanzas_1_to_3(monkeypatch):
         "quickstart_example", ROOT / "examples" / "quickstart.py")
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)
-    # stanza 4 (lifecycle recording) is the observability layer's
+    # stanza 4 (lifecycle recording) has its own test in test_torch_obs.py
     monkeypatch.setattr(ref, "observed", lambda: None)
+    monkeypatch.setattr(quickstart, "observed", lambda: None)
     want = _stdout(ref.main)
     got = _stdout(quickstart.main)
     assert got == want

@@ -226,6 +226,65 @@ def test_release_while_a_stacking_task_runs_reruns_it(cuda):
         rt.shutdown()
 
 
+def test_serve_over_diffusion_holds_stamped_pages_on_the_card(cuda):
+    """A small sessions binding through the serve engine on the card, each
+    KV page a host ``uint8`` tensor stamped with its index: every input a
+    request reads is on the card, has the page's bytes and its stamp; the
+    replicas' caches hold device tensors; kv_summary and placements are
+    the CPU shape-only run's."""
+    from repro_torch.experiments import build_workload
+    from repro_torch.serve.diffusion import (ServeDiffusionEngine,
+                                             kv_summary, session_spec)
+
+    binding = {"kind": "chat", "n_sessions": 24, "turns_per_session": 3,
+               "kv_bytes_per_token": 256, "block": 16, "think_time_s": 0.0,
+               "turn_seconds": 0.0,
+               "arrivals": {"kind": "BatchArrivals", "at_s": 0.0}}
+    spec = session_spec("card-pages", binding, n_replicas=3,
+                        replica_cache_bytes=24 * 4096, seed=1)
+    objects = build_workload(spec.workload).objects
+    index = {ob.oid: i for i, ob in enumerate(objects)}
+    page = objects[0].size_bytes
+
+    def make_page(ob):
+        t = torch.zeros(ob.size_bytes, dtype=torch.uint8)
+        t[:16] = torch.tensor(list(index[ob.oid].to_bytes(16, "little")),
+                              dtype=torch.uint8)
+        return t
+
+    def check(inputs):
+        for oid, t in inputs.items():
+            assert t.device == cuda and t.numel() == page
+            assert int.from_bytes(bytes(t[:16].tolist()), "little") \
+                == index[oid]
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        eng = ServeDiffusionEngine(device=device)
+        try:
+            eng.prepare(spec)
+            if device == "cuda":
+                rep = eng.run(task_fn=check, payload_factory=make_page,
+                              barrier_every=1, timeout=120.0)
+                # batch-synchronous, an all-idle pool places each request
+                # on the replica caching most of it: the caches that hold
+                # pages hold them on the card
+                held = [p for w in eng.runtime.workers.values()
+                        for p in w.payloads.values()]
+                assert held and all(p.device == cuda and p.numel() == page
+                                    for p in held)
+            else:
+                rep = eng.run(barrier_every=1, timeout=120.0)
+            runs[device] = (rep, {t.tid: t.executor for t in
+                                  eng.runtime.dispatcher.completed})
+        finally:
+            eng.shutdown()
+    (rep, placed), (cpu_rep, cpu_placed) = runs["cuda"], runs["cpu"]
+    assert rep.n_failed == 0 and rep.n_completed == 72
+    assert kv_summary(rep) == kv_summary(cpu_rep)
+    assert placed == cpu_placed
+
+
 # --------------------------- flash attention ---------------------------------
 
 FA_CASES = [
