@@ -185,7 +185,29 @@ Phases, each reported on its own lines:
      once, so requests take pages from their peers: the bytes copied must
      still equal the store reads' alone (on one card a peer's page is the
      tensor the peer holds) and memory must again grow by the distinct
-     storages.
+     storages;
+ 14. the stacking workload on a fleet (``repro_torch.fleet``): Table 2's
+     locality-30 row in full (23,695 requests over 790 files, each request
+     writing its 40,000 B coadd to its executor's cache) on host processes
+     that share the card, each running executor threads whose 1 GiB
+     caches live on the card and ``astro.stack_object`` -- so the stacking
+     kernel -- inside the host; peers on other hosts are fetched over real
+     sockets.  (a) the trace replayed batch-synchronously (a barrier every
+     64 requests) on the in-process runtime with 64 executors and on a
+     2-host x 32-thread fleet: no scheduling-determined field of the
+     reports and no task's (executor, hits, peer hits, misses) may differ,
+     and the kernel must launch once per task in each (the hosts count
+     their own launches and report them in their stats frames); (b)
+     free-running on 4 x 16: every task completes, the hit ratio is at
+     least 0.9 of the ideal 1-1/30, the recorder's forwarded exec spans
+     equal the completed attempts and the launches, and the first 64
+     coadds, fetched from the hosts' caches through their peer servers,
+     match the plain version on the card; it prints tasks/s, the byte
+     split (with the cache-to-cache bytes that crossed a socket) and each
+     host's device memory; (c) 2 x 8 on the first 4,000 requests, host
+     ``h1`` SIGKILLed after 1,000 completions: the run drains with every
+     task completed, the victim's executors leave the pool, and its
+     process no longer holds device memory in nvidia-smi.
 
 Phase 2 runs the stacking kernel at the reference's test shapes and the
 main path's (N=8 and N=32 at 100x100), each beside the launch floor (the
@@ -274,6 +296,15 @@ SERVE_DIFFUSION_SESSIONS = {
     "block": 64, "model": "h2o-danube-3-4b", "think_time_s": 0.0,
     "turn_seconds": 0.0, "arrivals": {"kind": "BatchArrivals", "at_s": 0.0}}
 SERVE_DIFFUSION_REPLICAS, SERVE_DIFFUSION_CACHE = 4, 2 << 30
+#: phase 14: Table 2's locality-30 row on fleets of host processes that
+#: share the card, as (hosts, executor threads per host): the parity run,
+#: the free run and the failure run (on the trace's first requests, ``h1``
+#: SIGKILLed after that many completions); the task fn each host runs
+FLEET_LOCALITY = 30
+FLEET_PARITY, FLEET_FREE, FLEET_FAILURE = (2, 32), (4, 16), (2, 8)
+FLEET_FAILURE_TASKS, FLEET_KILL_AFTER = 4_000, 1_000
+FLEET_TASK_FN = "repro_torch.apps.astro:stack_object"
+FLEET_RING = 1 << 21
 
 STACKING_TPU_KERNEL = "src/repro/kernels/stacking/stacking.py:26"
 STACKING_SOURCE = "src/repro_torch/kernels/stacking/csrc/stack_rois.cu"
@@ -4323,6 +4354,371 @@ def phase_serve_diffusion(card: str) -> dict:
             "divergence_no_barrier": free_div,
             "seconds": seconds}
 
+# --------------------------------------------------------------------------
+# phase 14: stacking on a fleet of host processes that share the card
+# --------------------------------------------------------------------------
+
+def _fleet_spec(hosts: int, tph: int, observe=None):
+    """Table 2's locality-30 row (``astro.flat_spec(23_695, 30, 64)`` with
+    the table's 790 files), each request writing its coadd (40,000 B) as
+    an output the executor caches, laid out as ``hosts`` x ``tph``."""
+    import dataclasses
+
+    from repro_torch.apps import astro
+    from repro_torch.configs.astro_stacking import WORKLOADS
+    from repro_torch.experiments import ObserveSpec
+
+    n_tasks, n_files = WORKLOADS[FLEET_LOCALITY]
+    spec = astro.flat_spec(n_tasks, FLEET_LOCALITY, hosts * tph)
+    return dataclasses.replace(
+        spec, hosts=hosts, threads_per_host=tph,
+        workload=dataclasses.replace(spec.workload, n_objects=n_files,
+                                     output_bytes=astro.H * astro.W * 4),
+        observe=observe if observe is not None else ObserveSpec())
+
+
+def _fleet_engine(spec, tiles: dict, workload=None):
+    """A RuntimeEngine on the card for ``spec`` (a fleet when
+    ``spec.hosts``), its store holding every file's tiles."""
+    from repro_torch.experiments import RuntimeEngine
+
+    name = FLEET_TASK_FN if spec.hosts else None
+    eng = RuntimeEngine(task_fn_name=name, device="cuda").prepare(
+        spec, workload)
+    for ob in eng.workload.objects:
+        eng.runtime.put_object(ob, tiles[ob.oid])
+    return eng
+
+
+def _placements(rt) -> list:
+    return sorted((t.tid, t.executor, t.cache_hits, t.peer_hits,
+                   t.cache_misses) for t in rt.dispatcher.completed)
+
+
+def _host_launches(per_host: dict) -> dict:
+    """Each host's own count of stacking-kernel launches, from the stats
+    frame it answered the engine's final barrier with."""
+    return {h: int(d["metrics"]["gauges"].get(
+                "kernel.stack_rois.launches", 0))
+            for h, d in sorted(per_host.items())}
+
+
+def _compute_apps() -> list[tuple[str, str]]:
+    """``nvidia-smi --query-compute-apps=pid,used_memory``: one (pid,
+    memory) per process that holds a context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [tuple(x.strip() for x in line.split(",", 1))
+            for line in out.splitlines() if line.strip()]
+
+
+def _fleet_memory(rt, per_host: dict) -> dict:
+    """Each host process's device memory: nvidia-smi's line for its pid
+    where nvidia-smi shows the processes' pids, and what its own caching
+    allocator holds (from its stats frame).  Where nvidia-smi runs in
+    another PID namespace than the processes it lists, it shows each as
+    pid 1, and no line maps to a host."""
+    apps = _compute_apps()
+    by_pid = dict(apps)
+    out = {"nvidia_smi": apps, "hosts": {}}
+    for h in rt.manager.live_handles():
+        g = per_host.get(h.host_id, {}).get("metrics", {}).get("gauges", {})
+        out["hosts"][h.host_id] = {
+            "pid": h.proc.pid, "nvidia_smi": by_pid.get(str(h.proc.pid)),
+            "allocated": int(g.get("device.memory_allocated", 0)),
+            "reserved": int(g.get("device.memory_reserved", 0))}
+    return out
+
+
+def _socket_bytes(rt, events) -> tuple[int, int]:
+    """Bytes of the peer hits that crossed a socket (the peer executor on
+    another host than the reader's) and of those served in one host, from
+    the recorder's ``input`` events."""
+    host_of = {eid: h.host_id for h in rt.manager.handles.values()
+               for eid in h.eids}
+    crossed = same = 0
+    for e in events:
+        if e["kind"] == "input" and e.get("source") == "peer":
+            if host_of.get(e["peer"]) != host_of.get(e["eid"]):
+                crossed += e["bytes"]
+            else:
+                same += e["bytes"]
+    return crossed, same
+
+
+def _fleet_parity(tiles: dict) -> dict:
+    """(a): the trace replayed batch-synchronously (a barrier every 64
+    requests) on the in-process runtime with 64 executors and on a 2 x 32
+    fleet: the scheduling-determined fields and every task's placement and
+    input split must be equal."""
+    import dataclasses
+
+    from repro_torch.apps import astro
+    from repro_torch.experiments import ObserveSpec
+    from repro_torch.fleet import reports_scheduling_equal
+    from repro_torch.kernels.stacking.stacking import launches
+
+    hosts, tph = FLEET_PARITY
+    spec = _fleet_spec(hosts, tph, ObserveSpec(metrics=True,
+                                               metrics_interval_s=1.0))
+    barrier = hosts * tph
+    eng = _fleet_engine(dataclasses.replace(spec, hosts=0,
+                                            threads_per_host=1,
+                                            observe=ObserveSpec()), tiles)
+    try:
+        launches.reset()
+        r1 = eng.run(task_fn=astro.stack_object, barrier_every=barrier,
+                     timeout=900.0)
+        torch.cuda.synchronize()
+        n_in = launches.value
+        per1 = _placements(eng.runtime)
+    finally:
+        eng.shutdown()
+    t0 = time.monotonic()
+    eng = _fleet_engine(spec, tiles)
+    try:
+        up_s = time.monotonic() - t0
+        r2 = eng.run(barrier_every=barrier, timeout=900.0)
+        per2 = _placements(eng.runtime)
+        host_launch = _host_launches(eng.runtime.manager.cluster.per_host())
+        codec = eng.runtime.manager.codec
+    finally:
+        eng.shutdown()
+    diff = reports_scheduling_equal(r1, r2)
+    n_diff = sum(a != b for a, b in zip(per1, per2)) + abs(len(per1)
+                                                         - len(per2))
+    log(f"[fleet] (a) barrier every {barrier}: in-process 64 executors "
+        f"{r1.wall_s:.2f}s, {n_in} launches; {hosts} x {tph} fleet "
+        f"(codec {codec}, hosts up and catalog replicated in "
+        f"{up_s:.2f}s) {r2.wall_s:.2f}s, launches per host {host_launch}")
+    log(f"[fleet] (a) hit ratio {r1.cache_hit_ratio:.4f} vs "
+        f"{r2.cache_hit_ratio:.4f}; bytes {r1.bytes_by_kind} vs "
+        f"{r2.bytes_by_kind}; scheduling fields differing: "
+        f"{sorted(diff) or 'none'}; tasks placed differently: {n_diff} "
+        f"of {len(per1)}")
+    if diff or n_diff:
+        raise AssertionError(f"fleet parity: fields {diff}, {n_diff} tasks "
+                             f"placed differently")
+    if r2.n_completed != len(per1) or r2.n_failed:
+        raise AssertionError("fleet parity: not every task completed")
+    if n_in != r1.n_completed or sum(host_launch.values()) != r2.n_completed:
+        raise AssertionError(f"fleet parity: launches {n_in} in process, "
+                             f"{host_launch} in the hosts, for "
+                             f"{r2.n_completed} tasks")
+    return {"barrier_every": barrier, "codec": codec,
+            "inprocess_wall_s": r1.wall_s, "fleet_wall_s": r2.wall_s,
+            "fleet_up_s": up_s, "cache_hit_ratio": r2.cache_hit_ratio,
+            "bytes_by_kind": r2.bytes_by_kind, "diff_fields": sorted(diff),
+            "placements_differing": n_diff,
+            "launches_inprocess": n_in, "launches_hosts": host_launch}
+
+
+def _fleet_free(tiles: dict, ideal: float) -> dict:
+    """(b): the trace free-running on a 4 x 16 fleet, recorded."""
+    from repro_torch.experiments import ObserveSpec
+    from repro_torch.fleet.host import PeerClient
+
+    hosts, tph = FLEET_FREE
+    spec = _fleet_spec(hosts, tph, ObserveSpec(
+        events=True, ring_capacity=FLEET_RING, metrics=True,
+        metrics_interval_s=1.0))
+    t0 = time.monotonic()
+    eng = _fleet_engine(spec, tiles)
+    client = None
+    try:
+        rt = eng.runtime
+        up_s = time.monotonic() - t0
+        rep = eng.run(time_scale=0.0, timeout=900.0)
+        per_host = rt.manager.cluster.per_host()
+        host_launch = _host_launches(per_host)
+        memory = _fleet_memory(rt, per_host)
+        events = eng.recorder.events()
+        spans = {k: sum(e["kind"] == k for e in events)
+                 for k in ("exec_start", "exec_end", "task_done")}
+        crossed, same = _socket_bytes(rt, events)
+        b = rep.bytes_by_kind
+        log(f"[fleet] (b) {hosts} x {tph} free-running: completed "
+            f"{rep.n_completed}/{rep.n_tasks} failed {rep.n_failed} | "
+            f"{rep.tasks_per_second:.1f} tasks/s over the busy span "
+            f"({rep.busy_span_s:.2f}s; hosts up and catalog replicated in "
+            f"{up_s:.2f}s)")
+        log(f"[fleet] (b) cache hit ratio {rep.cache_hit_ratio:.4f} (ideal "
+            f"{ideal:.4f}; local {rep.local_hits}, peer {rep.peer_hits}, "
+            f"store {rep.store_reads}); bytes local {b['local'] / 1e9:.4f} "
+            f"GB, cache-to-cache {b['c2c'] / 1e9:.4f} GB ({crossed / 1e9:.4f}"
+            f" GB across a socket, {same / 1e9:.4f} GB within a host), "
+            f"store {b['store_read'] / 1e9:.4f} GB")
+        log(f"[fleet] (b) recorder: {spans['exec_start']} exec_start, "
+            f"{spans['exec_end']} exec_end, {spans['task_done']} task_done "
+            f"for {rep.n_completed} completed attempts, "
+            f"{eng.recorder.dropped} dropped; launches per host "
+            f"{host_launch}")
+        for h, m in memory["hosts"].items():
+            log(f"[fleet] (b) {h} pid {m['pid']}: allocator "
+                f"{m['allocated'] / 2**30:.3f} GiB allocated, "
+                f"{m['reserved'] / 2**30:.3f} GiB reserved; nvidia-smi "
+                f"{m['nvidia_smi'] or 'shows no line for this pid'}")
+        log(f"[fleet] (b) nvidia-smi compute apps (pid, used memory): "
+            f"{memory['nvidia_smi']}")
+        if rep.n_completed != rep.n_tasks or rep.n_failed:
+            raise AssertionError("fleet free run: not every task completed")
+        if rep.cache_hit_ratio < 0.9 * ideal:
+            raise AssertionError(f"fleet free run: hit ratio "
+                                 f"{rep.cache_hit_ratio} below 90% of {ideal}")
+        if not (spans["exec_start"] == spans["exec_end"]
+                == spans["task_done"] == rep.n_completed) \
+                or eng.recorder.dropped:
+            raise AssertionError(f"fleet free run: spans {spans} for "
+                                 f"{rep.n_completed} attempts")
+        if sum(host_launch.values()) != rep.n_completed \
+                or len(host_launch) != hosts:
+            raise AssertionError(f"fleet free run: launches {host_launch} "
+                                 f"for {rep.n_completed} tasks")
+        client = PeerClient(rt.manager.codec)
+        worst = 0.0
+        for t in rt.dispatcher.completed[:CHECKED_TASKS]:
+            host = rt.workers[t.executor].host
+            got = client.fetch((host.peer_host, host.peer_port), t.executor,
+                               f"{t.tid}.out")
+            if got is None:
+                raise AssertionError(f"{t.tid}: its coadd is not in "
+                                     f"{t.executor}'s cache")
+            want = _recompute(eng, t, [int(oid[3:]) for oid in t.inputs])
+            worst = max(worst, check_close(t.tid, got.to(want.device),
+                                           want)[0])
+        log(f"[fleet] (b) first {CHECKED_TASKS} completed tasks' coadds, "
+            f"fetched through the hosts' peer servers, against the plain "
+            f"version on the card: max abs err {worst:.3g}")
+        return {"hosts": hosts, "threads_per_host": tph, "up_s": up_s,
+                "wall_s": rep.wall_s, "busy_span_s": rep.busy_span_s,
+                "tasks_per_second": rep.tasks_per_second,
+                "cache_hit_ratio": rep.cache_hit_ratio, "ideal": ideal,
+                "local_hits": rep.local_hits, "peer_hits": rep.peer_hits,
+                "store_reads": rep.store_reads, "bytes_by_kind": b,
+                "bytes_c2c_socket": crossed, "bytes_c2c_same_host": same,
+                "spans": spans, "launches_hosts": host_launch,
+                "memory": memory, "checked_max_abs_err": worst}
+    finally:
+        if client is not None:
+            client.close()
+        eng.shutdown()
+
+
+def _fleet_failure(tiles: dict) -> dict:
+    """(c): the trace's first requests on a 2 x 8 fleet; ``h1`` is
+    SIGKILLed once work is spread.  The run must drain with every task
+    accounted, the victim's executors leave the pool, and its process
+    holds no device memory afterwards."""
+    from repro_torch.experiments import build_workload
+    from repro_torch.workloads import Workload
+
+    hosts, tph = FLEET_FAILURE
+    spec = _fleet_spec(hosts, tph)
+    full = build_workload(spec.workload)
+    wl = Workload(full.name, full.objects,
+                  full.events[:FLEET_FAILURE_TASKS], full.spec)
+    eng = _fleet_engine(spec, tiles, wl)
+    try:
+        rt = eng.runtime
+        victim = rt.manager.handles["h1"]
+        victim_eids = set(victim.eids)
+        run = _InBackground(lambda: eng.run(time_scale=0.0, timeout=600.0))
+        run.start()
+        deadline = time.monotonic() + 300.0
+        while (len(rt.dispatcher.completed) < FLEET_KILL_AFTER
+               and run.is_alive() and time.monotonic() < deadline):
+            time.sleep(0.005)
+        done_at_kill = len(rt.dispatcher.completed)
+        with rt._lock:
+            running = {eid: len(st.running)
+                       for eid, st in rt.dispatcher.executors.items()}
+        in_flight = sum(running.get(e, 0) for e in victim_eids)
+        apps_before = _compute_apps()
+        pid = rt.manager.kill_host("h1")
+        rep = run.result()
+        victim.proc.join(30.0)
+        apps_after = _compute_apps()
+        t_wait = time.monotonic() + 15.0
+        while len(apps_after) >= len(apps_before) \
+                and time.monotonic() < t_wait:
+            time.sleep(0.25)
+            apps_after = _compute_apps()
+        pid_listed = [p for p, _ in apps_before]
+        retried = sum(t.attempts > 0 for t in rt.dispatcher.completed)
+        log(f"[fleet] (c) {hosts} x {tph} on the first "
+            f"{FLEET_FAILURE_TASKS} requests: SIGKILL h1 (pid {pid}) after "
+            f"{done_at_kill} completions with {in_flight} of its tasks in "
+            f"flight; completed {rep.n_completed}, failed {rep.n_failed}, "
+            f"{retried} completed on a later attempt; executors left "
+            f"{len(rt.workers)}; victim exit code {victim.proc.exitcode}")
+        log(f"[fleet] (c) nvidia-smi compute apps before the kill "
+            f"{apps_before}, after {apps_after}")
+        if rep.n_completed + rep.n_failed != FLEET_FAILURE_TASKS \
+                or rep.n_failed:
+            raise AssertionError("fleet failure run: tasks not accounted")
+        if not victim_eids.isdisjoint(rt.workers) \
+                or len(rt.workers) != tph:
+            raise AssertionError("fleet failure run: the victim's executors "
+                                 "are still in the pool")
+        if victim.proc.exitcode != -9:
+            raise AssertionError(f"fleet failure run: victim exit code "
+                                 f"{victim.proc.exitcode}")
+        if str(pid) in pid_listed:
+            held = any(p == str(pid) for p, _ in apps_after)
+        else:
+            # nvidia-smi shows another pid namespace's numbers: the killed
+            # process holds nothing when its line is gone
+            held = len(apps_after) != len(apps_before) - 1
+        if held:
+            raise AssertionError("fleet failure run: the killed host still "
+                                 "holds device memory")
+        return {"tasks": FLEET_FAILURE_TASKS, "killed_pid": pid,
+                "completed_at_kill": done_at_kill,
+                "victim_in_flight": in_flight,
+                "n_completed": rep.n_completed, "n_failed": rep.n_failed,
+                "retried": retried,
+                "wall_s": rep.wall_s, "executors_left": len(rt.workers),
+                "nvidia_smi_before": apps_before,
+                "nvidia_smi_after": apps_after}
+    finally:
+        eng.shutdown()
+
+
+def phase_fleet(card: str) -> dict:
+    from repro_torch.apps import astro
+    from repro_torch.configs.astro_stacking import WORKLOADS, workload
+    from repro_torch.core import DataObject
+    from repro_torch.fleet import wire
+
+    t0 = time.monotonic()
+    n_tasks, n_files = WORKLOADS[FLEET_LOCALITY]
+    ideal = workload(FLEET_LOCALITY).ideal_cache_hit_ratio
+    objects = _fleet_spec(1, 1).workload
+    log(f"[fleet] {n_tasks} requests over {n_files} files of "
+        f"{astro.FILE_BYTES} B (Table 2, locality {FLEET_LOCALITY}; "
+        f"{n_files * astro.FILE_BYTES / 1e6:.1f} MB catalog; no cut), each "
+        f"writing its {astro.H * astro.W * 4} B coadd to its executor's "
+        f"cache; 1 GiB caches on the card; {objects.popularity['kind']} "
+        f"popularity, max-compute-util; hosts are spawned processes "
+        f"running {FLEET_TASK_FN}; wire codec 'auto' = "
+        f"{'msgpack' if wire.HAVE_MSGPACK else 'json'}; {card}")
+    tiles = {f"img{i}": astro.make_tiles(DataObject(f"img{i}", 0))
+             for i in range(n_files)}
+    log(f"[fleet] catalog made on the host in {time.monotonic() - t0:.2f}s")
+    parity = _fleet_parity(tiles)
+    free = _fleet_free(tiles, ideal)
+    failure = _fleet_failure(tiles)
+    wall = time.monotonic() - t0
+    log(f"[fleet] phase 14 took {wall:.1f}s")
+    return {"parity": parity, "free": free, "failure": failure,
+            "wall_s": wall,
+            "launches": (parity["launches_inprocess"]
+                         + sum(parity["launches_hosts"].values())
+                         + sum(free["launches_hosts"].values()))}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--json", type=Path, default=None,
@@ -4352,6 +4748,7 @@ def main(argv=None) -> int:
     elastic = phase_elastic(env["nvidia_smi"])
     vision = phase_vision_train(env["nvidia_smi"])
     serve_diffusion = phase_serve_diffusion(env["nvidia_smi"])
+    fleet = phase_fleet(env["nvidia_smi"])
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
@@ -4364,10 +4761,12 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": STACKING_SOURCE,
         "replaces": STACKING_TPU_KERNEL,
-        "launches": flat["launches"] + pipe["launches"] + elastic["launches"],
+        "launches": (flat["launches"] + pipe["launches"]
+                     + elastic["launches"] + fleet["launches"]),
         "launches_flat": flat["launches"],
         "launches_pipeline": pipe["launches"],
         "launches_elastic": elastic["launches"],
+        "launches_fleet": fleet["launches"],
         "shape": main_row["shape"],
         "max_abs_err": main_err,
         "ms": main_row["ms"],
@@ -4502,7 +4901,8 @@ def main(argv=None) -> int:
              "serve": serve, "ssm_serve": ssm, "train": trained,
              "moe": moe, "ssm_train": ssm_trained, "encdec": encdec,
              "elastic": elastic, "vision_train": vision,
-             "serve_diffusion": serve_diffusion, "kernels_line": line,
+             "serve_diffusion": serve_diffusion, "fleet": fleet,
+             "kernels_line": line,
              "seconds": time.monotonic() - t_start},
             indent=2, default=str) + "\n")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")

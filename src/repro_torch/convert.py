@@ -29,17 +29,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (flatten, param_defs, torch_dtype,
                                             unflatten)
 
-#: reference spec fields this package does not keep (the fleet's), with
-#: the reference's defaults: a saved spec may carry them only at these
-#: values.
-_DROPPED_SPEC_FIELDS = {
-    "hosts": 0,
-    "threads_per_host": 1,
-    "wire_batch": 64,
-    "local_dispatch": False,
-}
-
-
 def store_from_numpy(items: Iterable[tuple[str, int, np.ndarray]],
                      device: str | torch.device = "cpu") -> ObjectStore:
     """A port ObjectStore holding each array as a tensor on ``device``.
@@ -58,26 +47,11 @@ def store_from_numpy(items: Iterable[tuple[str, int, np.ndarray]],
     return store
 
 
-def _strip(d: dict, dropped: dict, path: str) -> dict:
-    out = dict(d)
-    for name, default in dropped.items():
-        if name in out:
-            if out[name] != default:
-                raise ValueError(
-                    f"{path}.{name}={out[name]!r}: this package does not run "
-                    f"that reference feature (only its default {default!r} "
-                    f"is accepted)")
-            del out[name]
-    return out
-
-
 def spec_from_json(path: Union[str, Path]) -> ExperimentSpec:
-    """Load a reference spec JSON (``ExperimentSpec.save``).  Fields this
-    package keeps load strictly; the reference's other fields must hold
-    their defaults, otherwise this raises rather than dropping intent."""
-    d = _strip(json.loads(Path(path).read_text()), _DROPPED_SPEC_FIELDS,
-               "spec")
-    return ExperimentSpec.from_dict(d)
+    """Load a reference spec JSON (``ExperimentSpec.save``), strictly: the
+    port's spec has every field the reference's has, the fleet's
+    included, so an unknown field or a bad value raises."""
+    return ExperimentSpec.from_dict(json.loads(Path(path).read_text()))
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:

@@ -6,7 +6,7 @@ runtime's executor caches holding device tensors.
 """
 from .cache import EvictionPolicy, ExecutorCache
 from .channel import CallbackChannel, Channel, ChannelClosed, LocalChannel
-from .index import IndexUpdate, LocationIndex
+from .index import IndexUpdate, LocationIndex, ShardedIndex
 from .objects import DataObject, Task, TaskState, make_objects, uniform_tasks
 from .policies import Decision, DispatchPolicy, decide
 from .provisioner import AllocationPolicy, DynamicResourceProvisioner
@@ -35,6 +35,7 @@ __all__ = [
     "LocationIndex",
     "ObjectStore",
     "SHAPE_ONLY_PAYLOAD",
+    "ShardedIndex",
     "SimConfig",
     "SimNodeRes",
     "SimResult",

@@ -14,10 +14,10 @@ stack; executors only ever talk to it through two message streams:
                      task's cache effects no later than its completion.
 
 Everything else the runtime does is shared-nothing, which makes these two
-seams exactly the cut points where the single-process runtime would become
-a multi-process fleet: swap the queue-backed channels below for
-socket-backed ones and the same dispatcher drives executors in other OS
-processes without a single scheduling-logic change.
+seams exactly the cut points where the single-process runtime becomes a
+multi-process fleet (`repro_torch.fleet`): swap the queue-backed channels
+below for socket-backed ones and the same dispatcher drives executors in
+other OS processes without a single scheduling-logic change.
 
 In-process implementations:
 
@@ -26,7 +26,8 @@ In-process implementations:
   `CallbackChannel`  a synchronous send-side-only channel: `send` invokes
                      the consumer inline (the dispatcher applying an index
                      update under its own lock).  This is what "the update
-                     seam, in process" degenerates to.
+                     seam, in process" degenerates to; the fleet replaces
+                     it with a socket and a receiver thread.
 """
 from __future__ import annotations
 
@@ -114,3 +115,58 @@ class CallbackChannel(Channel):
 
     def close(self) -> None:
         self._closed = True
+
+
+class BatchingChannel(Channel):
+    """Coalesce messages into bounded batches on another Channel.
+
+    Buffers sends and delivers them downstream as one
+    ``{"t": "batch", "msgs": [...]}`` frame once ``max_batch`` messages
+    have accumulated, or immediately when a send is marked ``flush=True``
+    (a single buffered message is forwarded bare -- no batch wrapper -- so
+    ``max_batch=1`` degenerates to the inner channel exactly).
+
+    Ordering contract (DESIGN.md §8/§9): the buffer append and the inner
+    ``send`` happen under ONE lock.  Flushing outside the lock would let
+    two concurrent flushes swap buffers and then race their inner sends,
+    which can reorder one thread's update *after* its own completion
+    across batch boundaries -- precisely the inversion the updates-
+    before-done contract forbids.  Holding the lock across the inner
+    send serialises batch emission in buffer order, so wire order is a
+    legal interleaving of the per-thread send orders, batched or not.
+    """
+
+    def __init__(self, inner: Channel, max_batch: int = 64) -> None:
+        self.inner = inner
+        self.max_batch = max(int(max_batch), 1)
+        self._buf: list[Any] = []
+        self._lock = threading.Lock()
+        self.batches_sent = 0
+        self.msgs_sent = 0
+
+    def send(self, msg: Any, flush: bool = False) -> None:
+        with self._lock:
+            self._buf.append(msg)
+            if flush or len(self._buf) >= self.max_batch:
+                self._flush_locked()
+
+    def flush(self) -> None:
+        with self._lock:
+            if self._buf:
+                self._flush_locked()
+
+    def _flush_locked(self) -> None:
+        buf, self._buf = self._buf, []
+        self.msgs_sent += len(buf)
+        self.batches_sent += 1
+        if len(buf) == 1:
+            self.inner.send(buf[0])
+        else:
+            self.inner.send({"t": "batch", "msgs": buf})
+
+    def recv(self, timeout: Optional[float] = None) -> Any:
+        raise ChannelClosed("BatchingChannel is send-side only")
+
+    def close(self) -> None:
+        self.flush()
+        self.inner.close()

@@ -1,4 +1,4 @@
-"""Centralized cache-location index (§3.2.3).
+"""Centralized (and optionally sharded) cache-location index (§3.2.3).
 
 The dispatcher keeps an in-memory map ``oid -> {executor ids caching it}``,
 kept *loosely coherent* with executor caches via update batches.  The paper
@@ -68,6 +68,16 @@ class LocationIndex:
         for u in updates:
             self.apply(u)
 
+    def apply_wire(self, triples: Iterable[Iterable]) -> None:
+        """Apply ``[executor, added, removed]`` triples as they cross the
+        fleet wire (host index replicas decode straight into this -- no
+        IndexUpdate re-tupling on the hot path)."""
+        for eid, added, removed in triples:
+            for oid in added:
+                self.insert(oid, eid)
+            for oid in removed:
+                self.remove(oid, eid)
+
     def drop_executor(self, executor: str) -> int:
         """Invalidate every entry for a released/failed executor."""
         oids = self._by_executor.pop(executor, set())
@@ -84,3 +94,73 @@ class LocationIndex:
 
     def __len__(self) -> int:
         return len(self._by_oid)
+
+
+class ShardedIndex:
+    """Hash-sharded variant (beyond-paper).
+
+    Addresses the two §3.2.3 limitations the paper itself raises -- memory
+    footprint and single point of failure -- while keeping per-shard lookups
+    O(1).  Shards can live on different service processes; here they are
+    in-process but the interface is shard-local so the split is mechanical.
+    A fleet host keeps its index replica in one (``repro_torch.fleet``).
+    """
+
+    def __init__(self, n_shards: int = 8) -> None:
+        if n_shards < 1:
+            raise ValueError("need >= 1 shard")
+        self._shards = [LocationIndex() for _ in range(n_shards)]
+
+    def _shard(self, oid: str) -> LocationIndex:
+        return self._shards[hash(oid) % len(self._shards)]
+
+    def insert(self, oid: str, executor: str) -> None:
+        self._shard(oid).insert(oid, executor)
+
+    def remove(self, oid: str, executor: str) -> None:
+        self._shard(oid).remove(oid, executor)
+
+    def lookup(self, oid: str) -> frozenset[str]:
+        return self._shard(oid).lookup(oid)
+
+    def apply(self, update: IndexUpdate) -> None:
+        for oid in update.added:
+            self.insert(oid, update.executor)
+        for oid in update.removed:
+            self.remove(oid, update.executor)
+
+    def apply_batch(self, updates: Iterable[IndexUpdate]) -> None:
+        for u in updates:
+            self.apply(u)
+
+    def apply_wire(self, triples: Iterable[Iterable]) -> None:
+        for eid, added, removed in triples:
+            for oid in added:
+                self.insert(oid, eid)
+            for oid in removed:
+                self.remove(oid, eid)
+
+    def drop_executor(self, executor: str) -> int:
+        return sum(s.drop_executor(executor) for s in self._shards)
+
+    def holdings(self, executor: str) -> frozenset[str]:
+        out: set[str] = set()
+        for s in self._shards:
+            out |= s.holdings(executor)
+        return frozenset(out)
+
+    def __len__(self) -> int:
+        return sum(len(s) for s in self._shards)
+
+    # -- aggregate op counters: drop-in observable like LocationIndex ---------
+    @property
+    def n_inserts(self) -> int:
+        return sum(s.n_inserts for s in self._shards)
+
+    @property
+    def n_removes(self) -> int:
+        return sum(s.n_removes for s in self._shards)
+
+    @property
+    def n_lookups(self) -> int:
+        return sum(s.n_lookups for s in self._shards)

@@ -37,7 +37,10 @@ The ``repro_torch.core.channel.Channel`` abstraction marks the two seams
 (task dispatch down to each worker, index updates / completions back up)
 that become RPCs on a real fleet: every dispatch goes through the worker's
 dispatch channel (``ExecutorWorker.dispatch``) and every cache admission
-through the runtime's ``update_channel``.
+through the runtime's ``update_channel``.  ``repro_torch.fleet`` swaps
+these in-process channels for socket-backed ones and runs the same
+dispatcher over executors in other OS processes, each with its caches on
+the card.
 
 Submission is closed-loop (``submit``) or open-loop (``submit_workload``: a
 paced submitter thread replays a ``repro_torch.workloads`` arrival schedule
@@ -64,8 +67,9 @@ from .scheduler import Dispatcher, Dispatch
 
 #: store payload for shape-only runs (tasks with no ``fn``).  Must NOT be
 #: None -- the cache-hit test is ``payload is not None``, so a None payload
-#: would turn every cache lookup into a store read.  Byte accounting uses
-#: DataObject sizes, never payload length.
+#: would turn every cache lookup into a store read.  Lives here (not in the
+#: experiment layer) so the fleet wire protocol can give it a stable
+#: encoding: byte accounting uses DataObject sizes, never payload length.
 SHAPE_ONLY_PAYLOAD = object()
 
 
@@ -110,7 +114,8 @@ class ObjectStore:
         return self._meta[oid]
 
     def items(self) -> list[tuple[DataObject, Any]]:
-        """Consistent snapshot of the catalog."""
+        """Consistent snapshot of the catalog (fleet hosts replicate it --
+        the store stands in for a shared filesystem every node can read)."""
         with self._lock:
             return [(self._meta[oid], self._data[oid]) for oid in self._data]
 
@@ -143,12 +148,11 @@ class _InputLedger:
 class DispatchStats:
     """Lightweight counters/timers on the central dispatch loop.
 
-    Mutated only under the runtime lock, surfaced through
+    Mutated only under the runtime lock (or folded in from per-connection
+    wire counters at read time on the fleet), surfaced through
     ``RunReport.dispatch_stats``.  ``lock_hold_s`` accumulates time spent
     inside the runtime lock on the pump path -- the quantity the
-    central-dispatcher bottleneck (Falkon's ~1k tasks/s wall) is made of.
-    The wire and lease counters belong to a multi-process fleet and stay 0
-    in process; they are kept so the report schema matches the reference."""
+    central-dispatcher bottleneck (Falkon's ~1k tasks/s wall) is made of."""
 
     pump_calls: int = 0
     dispatch_batches: int = 0      # pumps that produced >= 1 dispatch
@@ -156,13 +160,13 @@ class DispatchStats:
     max_dispatch_batch: int = 0
     updates_applied: int = 0
     lock_hold_s: float = 0.0
-    frames_sent: int = 0
+    frames_sent: int = 0           # wire frames (fleet); 0 in-process
     frames_recv: int = 0
-    msgs_sent: int = 0
+    msgs_sent: int = 0             # logical messages inside those frames
     msgs_recv: int = 0
-    leases: int = 0
-    claims: int = 0
-    claim_conflicts: int = 0
+    leases: int = 0                # tasks leased to hosts (hierarchical)
+    claims: int = 0                # claims accepted by the central
+    claim_conflicts: int = 0       # claims rejected (dead host / reclaim)
 
     def as_dict(self) -> dict:
         return {
@@ -228,9 +232,12 @@ class RuntimeLedger:
 
 
 class CacheExecutorBase:
-    """Executor-local payload cache + dispatch inbox Channel: the parts of
-    an executor that do not depend on where it runs.  ONE implementation of
-    lookup/peek/admit semantics.  Cached payloads are tensors on
+    """Executor-local payload cache + dispatch inbox Channel -- the parts
+    of an executor that are identical whether it lives in this process
+    (:class:`ExecutorWorker`) or inside a fleet host process
+    (``repro_torch.fleet.host.HostExecutor``).  ONE implementation of
+    lookup/peek/admit semantics, so the two runtimes the fleet's parity
+    tests compare cannot silently drift.  Cached payloads are tensors on
     ``device`` (see the module docstring)."""
 
     def __init__(self, eid: str, cache_capacity: int,
@@ -292,7 +299,9 @@ class ExecutorWorker(CacheExecutorBase):
 
     Receives work exclusively through its dispatch :class:`Channel`
     (``dispatch()`` is the only way the runtime hands it a task), so the
-    executor side of the dispatch seam is already message-shaped."""
+    executor side of the dispatch seam is already message-shaped -- the
+    fleet's remote executors implement the same ``dispatch``/``stop``
+    surface over a socket."""
 
     def __init__(self, eid: str, rt: "DiffusionRuntime",
                  cache_capacity: int, policy: EvictionPolicy, seed: int,
@@ -443,8 +452,8 @@ class DiffusionRuntime:
 
     def _deregister_locked(self, eid: str, failed: bool) -> None:
         """Hand a (popped) executor back to the dispatcher, under the lock.
-        Terminally-failed in-flight tasks are accounted here or ``wait()``
-        leaks."""
+        Shared by thread removal and fleet host death -- both must account
+        terminally-failed in-flight tasks or ``wait()`` leaks."""
         st = self.dispatcher.executors.get(eid)
         running = set(st.running) if st is not None else set()
         self.dispatcher.executor_left(eid, time.monotonic(), failed=failed)
@@ -468,6 +477,8 @@ class DiffusionRuntime:
     # -- provisioning hooks ------------------------------------------------------
     # The wall-clock DRP driver (repro_torch.experiments._ProvisionerDriver)
     # talks to the pool only through these three methods, in executor units.
+    # The fleet overrides them with whole-host granularity (a "node" there
+    # is an OS process running threads_per_host executors).
 
     def provision_grow(self, n: int) -> None:
         for _ in range(n):
@@ -551,8 +562,9 @@ class DiffusionRuntime:
         a tail whose placement follows racy completion order) this makes
         the scheduling outcome (placement sequence, per-input
         hit/peer/store split, byte ledger) a pure function of the workload
-        -- identical across thread interleavings, and identical to the
-        reference runtime's, which is what the parity tests run on.
+        -- identical across thread interleavings, across the
+        in-process/fleet runtimes, and to the reference runtime's, which is
+        what the parity tests run on.
         """
         if time_scale < 0:
             raise ValueError("time_scale must be >= 0")
@@ -630,7 +642,8 @@ class DiffusionRuntime:
         against the retry's.  _finish_attempt merges the accumulator into
         the task AND the global ledger under the lock, after the membership
         guard drops de-registered workers -- so ledger totals always equal
-        the sum of counted attempts."""
+        the sum of counted attempts (fleet hosts report through the same
+        path)."""
         size = self.dispatcher.sizes.get(oid, 0)
         rec = self.recorder
         payload = w.cache_lookup(oid)
@@ -673,13 +686,17 @@ class DiffusionRuntime:
         self.update_channel.send(upd)
 
     def _on_update(self, upd: IndexUpdate) -> None:
-        """Consumer side of the update seam."""
+        """Consumer side of the update seam (same code path for in-process
+        sends and for updates arriving from fleet hosts)."""
         with self._lock:
-            self._update_buf.append(upd)
-            self.stats.updates_applied += 1
-            if len(self._update_buf) >= self._update_batch:
-                self.dispatcher.apply_index_updates(self._update_buf)
-                self._update_buf = []
+            self._on_update_locked(upd)
+
+    def _on_update_locked(self, upd: IndexUpdate) -> None:
+        self._update_buf.append(upd)
+        self.stats.updates_applied += 1
+        if len(self._update_buf) >= self._update_batch:
+            self.dispatcher.apply_index_updates(self._update_buf)
+            self._update_buf = []
 
     def _note_pump_locked(self, n_dispatches: int, hold_s: float) -> None:
         st = self.stats
@@ -706,9 +723,11 @@ class DiffusionRuntime:
         """Refresh the registry's gauges from live runtime state (the
         telemetry sampler calls this each tick; DESIGN.md §13).  Gauges are
         absolute totals for THIS source, so re-sampling is idempotent and a
-        cluster merge sums per-source values.  ``cache.bytes`` counts the
-        cached objects' ``size_bytes``, as the reference does, not the
-        device memory their tensors take."""
+        cluster merge sums per-source values.  On a fleet the workers are
+        remote proxies without local caches, so the cache/bandwidth gauges
+        here stay 0 and the per-host stats frames carry them instead.
+        ``cache.bytes`` counts the cached objects' ``size_bytes``, as the
+        reference does, not the device memory their tensors take."""
         m = self.metrics
         if m is None:
             return
@@ -774,32 +793,36 @@ class DiffusionRuntime:
         self._pump()
 
     def _finish_attempt(self, w, t: Task, acc: _InputLedger, ok: bool) -> None:
-        """Complete one execution attempt under the lock.  The identity
-        check against ``self.workers`` is the membership guard."""
+        """Complete one execution attempt under the lock.  ``w`` is
+        whatever object ``self.workers`` maps the executor id to -- a
+        thread worker here, a remote-executor proxy on a fleet -- and the
+        identity check is the membership guard for both."""
         with self._lock:
-            if self.workers.get(w.eid) is not w:
-                # this worker was removed mid-execution: executor_left
-                # already re-queued (or failed out) the task, so this
-                # attempt's outcome must not complete it a second time --
-                # that would double-decrement _outstanding and wake wait()
-                # early while the retry is still in flight -- and its input
-                # ledger must not pollute the retry's counters (acc is
-                # dropped here)
-                self.dropped_attempts += 1
-                return
-            acc.merge_into(t)
-            self.ledger.account_attempt(acc)
-            self.dispatcher.task_finished(t, time.monotonic(), ok=ok)
-            # a completion may also release held dependents (they re-enter
-            # the queue and stay outstanding) or -- on terminal failure --
-            # cascade-fail them; cascaded tasks never dispatch, so account
-            # them here.
-            terminal = 1 if (ok or t.state is TaskState.FAILED) else 0
-            terminal += len(self.dispatcher.drain_dep_failed())
-            if terminal:
-                self._outstanding -= terminal
-                if self._outstanding == 0:
-                    self._done.notify_all()
+            self._finish_attempt_locked(w, t, acc, ok)
+
+    def _finish_attempt_locked(self, w, t: Task, acc: _InputLedger,
+                               ok: bool) -> None:
+        if self.workers.get(w.eid) is not w:
+            # this worker was removed mid-execution: executor_left already
+            # re-queued (or failed out) the task, so this attempt's
+            # outcome must not complete it a second time -- that would
+            # double-decrement _outstanding and wake wait() early while
+            # the retry is still in flight -- and its input ledger must
+            # not pollute the retry's counters (acc is dropped here)
+            self.dropped_attempts += 1
+            return
+        acc.merge_into(t)
+        self.ledger.account_attempt(acc)
+        self.dispatcher.task_finished(t, time.monotonic(), ok=ok)
+        # a completion may also release held dependents (they re-enter the
+        # queue and stay outstanding) or -- on terminal failure -- cascade-
+        # fail them; cascaded tasks never dispatch, so account them here.
+        terminal = 1 if (ok or t.state is TaskState.FAILED) else 0
+        terminal += len(self.dispatcher.drain_dep_failed())
+        if terminal:
+            self._outstanding -= terminal
+            if self._outstanding == 0:
+                self._done.notify_all()
 
     def wait(self, timeout: float = 60.0) -> bool:
         deadline = time.monotonic() + timeout

@@ -36,7 +36,7 @@ scorer the incremental maps must bit-match (tests/test_join_scoring.py).
 
 DAG tasks (DESIGN.md §11): a task may declare producer ``deps``.  Tasks
 with unmet deps are *held* outside the wait queue (so no dispatch path --
-window scan or FIFO pop -- can ever see them); the producer's
+window scan, FIFO pop, or host lease -- can ever see them); the producer's
 ``task_finished`` releases them through the ordinary ``_enqueue`` path.
 A released task's placement score covers its inputs PLUS everything its
 producers created (``score_oids``), folded into the same cached-byte score
@@ -216,8 +216,8 @@ class Dispatcher:
         self._oid_waiters: dict[str, set[str]] = {}
         # ---- DAG ready-set (DESIGN.md §11) --------------------------------
         # held tid -> producer tids still outstanding.  Held tasks are in
-        # ``tasks`` but never in ``queue``/``pending``, so no dispatch
-        # path can reach them until every dep completes.
+        # ``tasks`` but never in ``queue``/``pending``, so no dispatch or
+        # lease path can reach them until every dep completes.
         self._held: dict[str, set[str]] = {}
         # producer tid -> held dependents in submission order (dict-as-
         # ordered-set: release order is deterministic across engines).
@@ -654,6 +654,44 @@ class Dispatcher:
             if not bound_any:
                 break
         return out
+
+    # ---------------- hierarchical lease / claim (DESIGN.md §9) --------------
+    def lease_next(self) -> Optional[Task]:
+        """Pop the head-of-queue live task for leasing to a host-local
+        dispatcher.  The task leaves the wait queue (and the incremental
+        hint maps, keeping its resolved hints as ``location_hints``) but
+        is NOT bound to an executor -- the owning runtime parks it in a
+        per-host lease table until a claim arrives or the host dies."""
+        if not self.queue:
+            return None
+        t = self.queue.popleft()
+        if self._mcu:
+            t.location_hints = self._hints_tuple(self._hints_drop(t))
+        t.state = TaskState.PENDING
+        if self.recorder is not None:
+            self.recorder.emit("task_leased", tid=t.tid)
+        return t
+
+    def bind_claim(self, t: Task, eid: str, now: float) -> Dispatch:
+        """Reconcile a host's local claim: bind the leased task to the
+        claiming executor.  A claim may transiently over-commit ``busy``
+        past ``slots`` (the host has already started the attempt);
+        ``task_finished`` decrements through the normal path."""
+        self.n_decisions += 1
+        if self.recorder is not None:
+            self.recorder.emit("task_claimed", tid=t.tid, eid=eid)
+        return self._bind(t, eid, now)
+
+    def requeue_leased(self, tasks: Iterable[Task]) -> None:
+        """Return unclaimed leased tasks (their host died or was removed)
+        to the FRONT of the wait queue in their original lease order.
+        They were never dispatched, so no attempt is charged."""
+        rec = self.recorder
+        for t in reversed(list(tasks)):
+            t.state = TaskState.SUBMITTED
+            if rec is not None:
+                rec.emit("task_requeued", tid=t.tid, reason="lease_returned")
+            self._enqueue(t, front=True)
 
     def _bind(self, t: Task, eid: str, now: float) -> Dispatch:
         st = self.executors[eid]

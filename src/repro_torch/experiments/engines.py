@@ -2,7 +2,10 @@
 
   SimEngine      discrete-event `DiffusionSim` (simulated clock)
   RuntimeEngine  threaded `DiffusionRuntime` (wall clock, real payloads),
-                 its executor caches on ``device`` (default ``"cuda"``)
+                 its executor caches on ``device`` (default ``"cuda"``);
+                 with ``spec.hosts > 0`` it drives `repro_torch.fleet.
+                 FleetRuntime` instead -- same executors-and-dispatcher
+                 model, spread over OS processes, each on ``device``
   serve          `repro_torch.serve.diffusion.ServeDiffusionEngine`, the
                  runtime engine with serving's checks (``LAZY_ENGINES``)
 
@@ -43,6 +46,7 @@ from repro_torch.core.provisioner import (AllocationPolicy,
 from repro_torch.core.runtime import SHAPE_ONLY_PAYLOAD, DiffusionRuntime
 from repro_torch.core.simulator import DiffusionSim, SimConfig, SimResult
 from repro_torch.core.testbeds import TESTBEDS
+from repro_torch.fleet.host import resolve_task_fn
 from repro_torch.obs import Recorder, outcome_record
 from repro_torch.workloads import (ARRIVALS, POPULARITY, MetricsCollector,
                                    Workload, build_dag, build_sessions,
@@ -83,7 +87,9 @@ def build_workload(wspec: WorkloadSpec) -> Workload:
 
 def build_provisioner(pspec: ProvisionerSpec,
                       allocate_quantum: int = 1) -> DynamicResourceProvisioner:
-    """The DRP a spec's provisioner binding describes, field for field."""
+    """The DRP a spec's provisioner binding describes, field for field.
+    ``allocate_quantum`` stays an engine-placement detail (fleet runs pass
+    threads_per_host so DRP grow/shrink moves whole hosts)."""
     return DynamicResourceProvisioner(
         min_executors=pspec.min_executors,
         max_executors=pspec.max_executors,
@@ -176,15 +182,6 @@ def _reject(engine: str, knob: str, value, supported) -> None:
         f"than silently ignoring the knob.")
 
 
-def resolve_task_fn(name: str) -> Callable[..., Any]:
-    """A task callable named ``module:attr`` (e.g.
-    ``repro_torch.apps.astro:stack_object``)."""
-    module, sep, attr = name.partition(":")
-    if not sep or not module or not attr:
-        raise ValueError(f"task fn name {name!r} is not 'module:attr'")
-    return getattr(importlib.import_module(module), attr)
-
-
 # --------------------------------------------------------------------------
 # the Engine protocol + adapters
 # --------------------------------------------------------------------------
@@ -230,6 +227,10 @@ class SimEngine:
             _reject("sim", "index_update_batch", spec.index_update_batch,
                     "the runtime's loose-coherence knob "
                     "(sim uses index_update_interval_s)")
+        if spec.hosts != 0:
+            _reject("sim", "hosts", spec.hosts,
+                    "0 (process layout is a threaded-runtime concern; the "
+                    "simulator has no OS processes to spread over)")
         self.spec = spec
         self.recorder = build_recorder(spec)
         self.provisioner = (build_provisioner(spec.provisioner)
@@ -345,8 +346,8 @@ class _TelemetrySampler(threading.Thread):
     """Wall-clock telemetry tick for the threaded runtime (counterpart of
     `DiffusionSim._metrics_tick`): every ``telemetry.interval_s`` it
     refreshes the runtime's gauges, lets the engine add its own
-    (`_engine_gauges`), and records one sample stamped in run-relative
-    seconds."""
+    (`_engine_gauges`), folds in the fleet's per-host cluster view when
+    there is one, and records one sample stamped in run-relative seconds."""
 
     def __init__(self, eng: "RuntimeEngine", t0: float) -> None:
         super().__init__(daemon=True, name="telemetry-sampler")
@@ -358,7 +359,12 @@ class _TelemetrySampler(threading.Thread):
         eng = self.eng
         eng.runtime.sample_metrics()
         eng._engine_gauges()
-        eng.telemetry.record_sample(time.monotonic() - self.t0)
+        per_host = None
+        manager = getattr(eng.runtime, "manager", None)
+        if manager is not None:
+            per_host = manager.cluster.per_host()
+        eng.telemetry.record_sample(time.monotonic() - self.t0,
+                                    per_host=per_host)
 
     def run(self) -> None:
         while not self.stop_evt.wait(self.eng.telemetry.interval_s):
@@ -374,10 +380,17 @@ class RuntimeEngine:
     seconds.  ``self.runtime`` stays alive afterwards for payload/result
     inspection; call :meth:`shutdown` when done.
 
+    ``spec.hosts > 0`` selects fleet mode: the SAME adapter drives a
+    `repro_torch.fleet.FleetRuntime` (executors spread over OS processes)
+    -- placement, accounting and the report pipeline are identical, only
+    the pool's process layout changes.  Task callables cannot cross
+    process boundaries, so fleet runs take ``task_fn_name`` (resolved
+    host-side against ``repro_torch.fleet.TASK_FNS`` or as
+    ``module:attr``) instead of ``run(task_fn=...)``.
+
     ``device`` defaults to ``"cuda"`` (the executors' caches and every task
-    input live there); pass ``device="cpu"`` to run on the CPU.
-    ``task_fn_name`` names the task callable as ``module:attr`` instead of
-    passing ``run(task_fn=...)``."""
+    input live there, in every host of a fleet); pass ``device="cpu"`` to
+    run on the CPU."""
 
     name = "runtime"
 
@@ -434,17 +447,36 @@ class RuntimeEngine:
 
             self.tel_server = TelemetryServer(self.telemetry,
                                               port=spec.observe.metrics_port)
-        self.runtime = DiffusionRuntime(
-            n_executors=spec.cluster.n_nodes,
-            policy=DispatchPolicy(spec.policy),
-            cache_policy=EvictionPolicy(spec.cache.eviction),
-            cache_capacity_bytes=(spec.cache.capacity_bytes
-                                  if spec.cache.enabled else 0),
-            seed=spec.seed,
-            index_update_batch=spec.index_update_batch,
-            recorder=self.recorder,
-            metrics=self.telemetry,
-            device=self.device)
+        if spec.hosts > 0:
+            from repro_torch.fleet import FleetRuntime
+
+            self.runtime = FleetRuntime(
+                hosts=spec.hosts,
+                threads_per_host=spec.threads_per_host,
+                policy=DispatchPolicy(spec.policy),
+                cache_policy=EvictionPolicy(spec.cache.eviction),
+                cache_capacity_bytes=(spec.cache.capacity_bytes
+                                      if spec.cache.enabled else 0),
+                seed=spec.seed,
+                index_update_batch=spec.index_update_batch,
+                wire_batch=spec.wire_batch,
+                local_dispatch=spec.local_dispatch,
+                task_fn_name=self.task_fn_name,
+                recorder=self.recorder,
+                metrics=self.telemetry,
+                device=self.device)
+        else:
+            self.runtime = DiffusionRuntime(
+                n_executors=spec.cluster.n_nodes,
+                policy=DispatchPolicy(spec.policy),
+                cache_policy=EvictionPolicy(spec.cache.eviction),
+                cache_capacity_bytes=(spec.cache.capacity_bytes
+                                      if spec.cache.enabled else 0),
+                seed=spec.seed,
+                index_update_batch=spec.index_update_batch,
+                recorder=self.recorder,
+                metrics=self.telemetry,
+                device=self.device)
         self.workload = workload if workload is not None \
             else build_workload(spec.workload)
         return self
@@ -458,7 +490,15 @@ class RuntimeEngine:
         rt = self.runtime
         if rt is None:
             raise RuntimeError("call prepare(spec) before run()")
-        if task_fn is None and self.task_fn_name:
+        if task_fn is not None and self.spec.hosts > 0:
+            raise ValueError(
+                "fleet runs cannot ship a task callable over the wire; "
+                "construct RuntimeEngine(task_fn_name=...) so each host "
+                "resolves it from repro_torch.fleet.TASK_FNS / module:attr")
+        if task_fn is None and self.task_fn_name and self.spec.hosts == 0:
+            # the named-callable surface works identically on the thread
+            # pool (resolved here) and the fleet (resolved host-side) --
+            # silently dropping the name would run every task shape-only
             task_fn = resolve_task_fn(self.task_fn_name)
         if payload_factory is None:
             # shape-only runs (no task_fn) still need store payloads to
@@ -471,9 +511,12 @@ class RuntimeEngine:
             # construction path for both engines.
             ps = self.spec.provisioner
             ts = time_scale if time_scale > 0 else 1.0
-            self.provisioner = build_provisioner(dataclasses.replace(
-                ps, idle_timeout_s=ps.idle_timeout_s * ts,
-                trigger_cooldown_s=ps.trigger_cooldown_s * ts))
+            self.provisioner = build_provisioner(
+                dataclasses.replace(
+                    ps, idle_timeout_s=ps.idle_timeout_s * ts,
+                    trigger_cooldown_s=ps.trigger_cooldown_s * ts),
+                allocate_quantum=(self.spec.threads_per_host
+                                  if self.spec.hosts > 0 else 1))
             self.provisioner.recorder = self.recorder
             self._driver = _ProvisionerDriver(rt, self.provisioner,
                                               ps.period_s * ts)
@@ -513,7 +556,11 @@ class RuntimeEngine:
         _finish_observe(self.spec, self.recorder)
         telemetry = None
         if self.telemetry is not None:
-            # one settled final sample after the drain
+            # settled final sample: on a fleet, first barrier on a fresh
+            # post-drain stats frame from every live host so the per-host
+            # snapshots in the report reflect the finished run exactly
+            if hasattr(rt, "request_stats"):
+                rt.request_stats()
             self._sampler.sample_once()
             telemetry = _telemetry_summary(self.telemetry, self.recorder)
             self.telemetry.close()

@@ -21,10 +21,8 @@ frozen dataclass tree --
 -- with strict JSON round-tripping: ``from_dict(to_dict(s)) == s`` bit-for-
 bit, and unknown fields hard-error at every nesting level (a half-applied
 spec silently skews every number downstream of it).  Field names, defaults
-and validation are the reference's; its four fleet fields (``hosts``,
-``threads_per_host``, ``wire_batch``, ``local_dispatch``) are not part of
-this spec (``repro_torch.convert.spec_from_json`` accepts them at their
-defaults).
+and validation are the reference's, the fleet's four fields (``hosts``,
+``threads_per_host``, ``wire_batch``, ``local_dispatch``) included.
 
 Alias map.  ``ALIASES`` documents, for every spec field, the engine-side
 parameter it binds to, and ``DOCUMENTED_DIVERGENCES`` records where the raw
@@ -262,6 +260,20 @@ class ExperimentSpec:
     release_policy: str = "discard"         # sim: discard | rebalance
     flow_solver: str = "incremental"        # sim: incremental | naive
     speculation_factor: float = 0.0         # sim: straggler twins
+    # runtime only, fleet mode (repro_torch.fleet): hosts > 0 runs the
+    # executors across `hosts` OS processes of `threads_per_host` executor
+    # threads each.  cluster.n_nodes must then equal hosts *
+    # threads_per_host -- the pool SIZE stays the cluster's business, its
+    # process layout is an engine knob.  hosts = 0 is the classic
+    # in-process thread pool.
+    hosts: int = 0
+    threads_per_host: int = 1
+    # fleet wire/dispatch shape: frames per batch on each host connection,
+    # and hierarchical per-host local dispatch (hosts score and claim
+    # leased work against a forwarded index replica).  Both are
+    # scheduling-neutral under batch-synchronous replay (DESIGN.md §9).
+    wire_batch: int = 64
+    local_dispatch: bool = False
     # observability: lifecycle-event recording, engine-neutral
     observe: ObserveSpec = field(default_factory=ObserveSpec)
 
@@ -275,6 +287,28 @@ class ExperimentSpec:
             raise ValueError("flow_solver must be incremental|naive")
         if self.index_update_batch < 1:
             raise ValueError("index_update_batch must be >= 1")
+        if self.hosts < 0:
+            raise ValueError("hosts must be >= 0 (0 = in-process threads)")
+        if self.threads_per_host < 1:
+            raise ValueError("threads_per_host must be >= 1")
+        if self.hosts == 0 and self.threads_per_host != 1:
+            raise ValueError("threads_per_host only applies to fleet runs; "
+                             "set hosts > 0 (or leave threads_per_host at 1)")
+        if self.wire_batch < 1:
+            raise ValueError("wire_batch must be >= 1")
+        if self.hosts == 0 and self.wire_batch != 64:
+            raise ValueError("wire_batch only applies to fleet runs; "
+                             "set hosts > 0 (or leave wire_batch at 64)")
+        if self.hosts == 0 and self.local_dispatch:
+            raise ValueError("local_dispatch only applies to fleet runs; "
+                             "set hosts > 0")
+        if self.hosts > 0 and self.cluster.n_nodes != \
+                self.hosts * self.threads_per_host:
+            raise ValueError(
+                f"fleet layout mismatch: cluster.n_nodes="
+                f"{self.cluster.n_nodes} but hosts*threads_per_host="
+                f"{self.hosts * self.threads_per_host} (the pool size and "
+                f"its process layout must agree)")
 
     # -- serialisation ------------------------------------------------------
     def to_dict(self) -> dict:
@@ -421,7 +455,27 @@ ALIASES: dict[str, tuple[Optional[str], Optional[str]]] = {
     "release_policy":          ("release_policy", None),
     "flow_solver":             ("flow_solver", None),
     "speculation_factor":      ("speculation_factor", None),
+    # fleet mode: the runtime-side names resolve against FleetRuntime (the
+    # spec paths in FLEET_PATHS), not DiffusionRuntime -- hosts=0 never
+    # reaches a FleetRuntime, and hosts>0 hard-errors on the simulator.
+    "hosts":                   (None, "hosts"),
+    "threads_per_host":        (None, "threads_per_host"),
+    "wire_batch":              (None, "wire_batch"),
+    "local_dispatch":          (None, "local_dispatch"),
 }
+
+#: spec paths whose runtime-side alias is a FleetRuntime ctor kwarg
+FLEET_PATHS = frozenset({"hosts", "threads_per_host", "wire_batch",
+                         "local_dispatch"})
+
+#: FleetRuntime ctor kwargs that deliberately have no spec field: the task
+#: callable registry name and transport/liveness/deployment tuning are
+#: operational knobs of a concrete deployment, not part of the
+#: experiment's identity (lease_depth shapes host-side queue depth, not
+#: placement under replay; bind_host is the multi-machine seam).
+FLEET_OPERATIONAL_KWARGS = frozenset({
+    "task_fn_name", "codec", "heartbeat_interval_s", "heartbeat_timeout_s",
+    "spawn_timeout_s", "lease_depth", "bind_host"})
 
 #: DiffusionRuntime ctor kwargs that deliberately have no spec field: the
 #: persistent store is data, not a knob; the device is where a run happens,
@@ -469,6 +523,11 @@ def _runtime_defaults() -> dict[str, object]:
     return _ctor_defaults(DiffusionRuntime)
 
 
+def _fleet_defaults() -> dict[str, object]:
+    from repro_torch.fleet.runtime import FleetRuntime
+    return _ctor_defaults(FleetRuntime)
+
+
 _alias_map_checked = False
 
 
@@ -479,8 +538,14 @@ def check_alias_map() -> None:
     if _alias_map_checked:
         return
     sim, rt = _sim_defaults(), _runtime_defaults()
+    fleet = _fleet_defaults()
     problems: list[str] = []
     for path, (sim_name, rt_name) in ALIASES.items():
+        if path in FLEET_PATHS:
+            if rt_name is not None and rt_name not in fleet:
+                problems.append(f"{path}: FleetRuntime has no kwarg "
+                                f"{rt_name!r}")
+            continue
         if sim_name is not None and sim_name not in sim:
             problems.append(f"{path}: SimConfig has no field {sim_name!r}")
         if rt_name is not None and rt_name not in rt:
@@ -521,6 +586,27 @@ def check_alias_map() -> None:
     if missing_rt:
         problems.append(f"DiffusionRuntime kwargs not covered by ALIASES: "
                         f"{sorted(missing_rt)}")
+    # fleet drift: FleetRuntime must accept every DiffusionRuntime knob
+    # (except the executor count it derives from hosts*threads_per_host)
+    # with an IDENTICAL default -- a new runtime knob that never reaches
+    # the fleet ctor, or a silently different fleet default, fails here.
+    for name, r_def in rt.items():
+        if name in ("n_executors", "store"):
+            continue
+        if name not in fleet:
+            problems.append(f"FleetRuntime is missing DiffusionRuntime "
+                            f"kwarg {name!r}")
+        elif fleet[name] != r_def:
+            problems.append(f"FleetRuntime default for {name!r} "
+                            f"({fleet[name]!r}) silently diverges from "
+                            f"DiffusionRuntime's ({r_def!r})")
+    fleet_covered = ({r for p, (_, r) in ALIASES.items()
+                      if p in FLEET_PATHS and r is not None}
+                     | (set(rt) - {"n_executors"}))
+    missing_fleet = set(fleet) - fleet_covered - FLEET_OPERATIONAL_KWARGS
+    if missing_fleet:
+        problems.append(f"FleetRuntime kwargs not covered by ALIASES or "
+                        f"FLEET_OPERATIONAL_KWARGS: {sorted(missing_fleet)}")
     if problems:
         raise RuntimeError(
             "experiment spec layer out of sync with engine signatures:\n  "

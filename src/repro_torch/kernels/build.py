@@ -41,14 +41,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _libs: dict[str, ctypes.PyDLL] = {}
 _lock = threading.Lock()
 
+#: every named launch counter of this process, by name (a fleet host
+#: reports them upstream: each process counts its own launches)
+COUNTERS: dict[str, "LaunchCounter"] = {}
+
 
 class LaunchCounter:
     """How many times a wrapper launched its kernel (thread-safe: executor
-    threads launch concurrently)."""
+    threads launch concurrently).  A counter given a ``name`` is listed in
+    :data:`COUNTERS`."""
 
-    def __init__(self) -> None:
+    def __init__(self, name: str | None = None) -> None:
         self._n = 0
         self._lock = threading.Lock()
+        if name is not None:
+            COUNTERS[name] = self
 
     def add(self) -> None:
         with self._lock:

@@ -20,9 +20,10 @@ from ..build import LaunchCounter, load, refuse_grad
 
 #: launches of either flash-attention kernel (``launches.value``;
 #: ``reset()``)
-launches = LaunchCounter()
+launches = LaunchCounter("flash_attention")
 #: launches per kernel, by ``kernel_path``'s answer
-path_launches = {"wgmma": LaunchCounter(), "simt": LaunchCounter()}
+path_launches = {"wgmma": LaunchCounter("flash_attention/wgmma"),
+                 "simt": LaunchCounter("flash_attention/simt")}
 
 #: the largest head_dim the SIMT kernel takes
 MAX_HEAD_DIM = 256

@@ -20,9 +20,10 @@ import torch
 from ..build import LaunchCounter, load, refuse_grad
 
 #: launches of the selective-scan kernel (``launches.value``; ``reset()``)
-launches = LaunchCounter()
+launches = LaunchCounter("mamba_scan")
 #: launches per lane layout, by ``kernel_path``'s answer
-path_launches = {"pair": LaunchCounter(), "quad": LaunchCounter()}
+path_launches = {"pair": LaunchCounter("mamba_scan/pair"),
+                 "quad": LaunchCounter("mamba_scan/quad")}
 #: lanes of a warp that share one (b, i) channel, per path
 LANES = {"pair": 2, "quad": 4}
 #: below this many (b, i) channels, two lanes per channel leave the SMs

@@ -16,7 +16,7 @@ import torch
 from ..build import LaunchCounter, load
 
 #: launches of the stacking kernel (``launches.value``; ``reset()`` to zero)
-launches = LaunchCounter()
+launches = LaunchCounter("stack_rois")
 
 _F32 = torch.float32
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]

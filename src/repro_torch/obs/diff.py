@@ -9,8 +9,6 @@ latency-error quantiles.  The result dict is what `RunReport.
 task_divergence` carries and what ``tools/run_experiment.py diff`` prints.
 
 A copy of the reference's ``repro.obs.diff`` on the port's simulator.
-This package's spec has no fleet fields, so the twin only turns strict
-index coherence on and observation off.
 """
 from __future__ import annotations
 
@@ -26,14 +24,16 @@ _BYTE_FIELDS = ("bytes_local", "bytes_peer", "bytes_store")
 
 
 def sim_twin_spec(spec, trace_path=None):
-    """The simulator-runnable twin of a runtime (or serve) spec: same pool
-    size, policy, cache and seed, but strict index coherence, and -- when
-    ``trace_path`` is given -- the workload re-bound to the recorded
-    arrival trace.  Observation is disabled on the twin (the diff consumes
-    its dispatcher state directly)."""
+    """The simulator-runnable twin of a (possibly fleet/runtime) spec: same
+    pool size, policy, cache and seed, but hosts=0, strict index coherence,
+    and -- when ``trace_path`` is given -- the workload re-bound to the
+    recorded arrival trace.  Observation is disabled on the twin (the diff
+    consumes its dispatcher state directly)."""
     from repro_torch.experiments.spec import ObserveSpec, WorkloadSpec
 
-    kw = dict(index_update_batch=1, observe=ObserveSpec())
+    kw = dict(hosts=0, threads_per_host=1, wire_batch=64,
+              local_dispatch=False, index_update_batch=1,
+              observe=ObserveSpec())
     if trace_path is not None:
         kw["workload"] = WorkloadSpec(name=spec.workload.name,
                                       trace_path=str(trace_path))

@@ -8,11 +8,11 @@ subsystem is that nothing in `repro_torch.core` changed to make serving work.
 ``check_serve_spec`` is the dead-knob rule applied to the serve engine: a
 knob the engine would silently ignore hard-errors instead.
 
-A copy of the reference's ``repro.serve.diffusion.binding``.  This
-package's spec has no fleet fields, so there is no ``hosts`` to refuse.
+A copy of the reference's ``repro.serve.diffusion.binding``.
 """
 from __future__ import annotations
 
+from repro_torch.experiments.engines import _reject
 from repro_torch.experiments.spec import (CacheSpec, ClusterSpec,
                                           ExperimentSpec, ObserveSpec,
                                           ProvisionerSpec, WorkloadSpec)
@@ -55,6 +55,10 @@ def check_serve_spec(spec: ExperimentSpec) -> None:
     """Serve-legality: the serve engine is the threaded runtime with
     serving semantics, so it inherits every runtime reject (cpus_per_node,
     write_outputs_to, ...) from RuntimeEngine.prepare and adds its own."""
+    if spec.hosts != 0:
+        _reject("serve", "hosts", spec.hosts,
+                "0 (replicas are in-process worker threads; fleet-mode "
+                "serving is the runtime engine's business)")
     if spec.workload.dag is not None:
         raise ValueError(
             "serve engine: workload.dag is not serve-legal -- serving "

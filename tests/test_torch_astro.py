@@ -4,6 +4,7 @@ converters."""
 import contextlib
 import importlib.util
 import io
+import json
 from pathlib import Path
 
 import numpy as np
@@ -222,8 +223,17 @@ def test_spec_from_json_loads_reference_spec(tmp_path):
 
 
 def test_spec_from_json_refuses_features_the_port_lacks(tmp_path):
+    """The port now has the reference's fleet fields: a fleet spec loads as
+    the same spec, and one the reference would refuse is refused alike."""
     base = _jax_spec(astro.pipeline_spec(2, 2, 2))
     path = tmp_path / "spec.json"
-    JaxExperimentSpec(**{**base.__dict__, "hosts": 2}).save(path)
-    with pytest.raises(ValueError, match="hosts"):
+    fleet = JaxExperimentSpec(**{**base.__dict__, "hosts": 2})
+    fleet.save(path)
+    assert convert.spec_from_json(path).to_dict() == fleet.to_dict()
+    d = json.loads(path.read_text())
+    path.write_text(json.dumps({**d, "hosts": 3}))
+    with pytest.raises(ValueError, match="hosts") as want:
+        JaxExperimentSpec.load(path)
+    with pytest.raises(ValueError, match="hosts") as got:
         convert.spec_from_json(path)
+    assert str(got.value) == str(want.value)

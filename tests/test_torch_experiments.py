@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro import experiments as jax_exp
+from repro.experiments import spec as jax_spec_mod
 from repro_torch import convert
 from repro_torch.apps import astro, quickstart
 from repro_torch.core.objects import DataObject
@@ -30,10 +31,6 @@ from repro_torch.experiments import spec as spec_mod
 
 ROOT = Path(__file__).resolve().parents[1]
 MB = 10**6
-
-#: the reference's fleet fields, which the port's spec does not keep
-#: (convert.spec_from_json takes them at their defaults)
-FLEET = ("hosts", "threads_per_host", "wire_batch", "local_dispatch")
 
 BASE = ExperimentSpec(
     name="base",
@@ -51,11 +48,8 @@ BASE = ExperimentSpec(
 
 
 def _reference_dict(spec) -> dict:
-    """A reference spec's dict without the fields the port does not keep."""
-    d = spec.to_dict()
-    for k in FLEET:
-        d.pop(k)
-    return d
+    """A reference spec's dict: the port's spec has every field it has."""
+    return spec.to_dict()
 
 
 def _jax(spec: ExperimentSpec):
@@ -148,9 +142,10 @@ def test_override_into_an_unset_provisioner_is_refused():
 
 def test_alias_map_matches_reference_and_live_signatures(monkeypatch):
     spec_mod.check_alias_map()
-    fleet = {"hosts", "threads_per_host", "wire_batch", "local_dispatch"}
-    assert ALIASES == {k: v for k, v in jax_exp.ALIASES.items()
-                       if k not in fleet}
+    assert ALIASES == jax_exp.ALIASES
+    assert spec_mod.FLEET_PATHS == jax_spec_mod.FLEET_PATHS
+    assert spec_mod.FLEET_OPERATIONAL_KWARGS \
+        == jax_spec_mod.FLEET_OPERATIONAL_KWARGS
     assert spec_mod.DOCUMENTED_DIVERGENCES == jax_exp.DOCUMENTED_DIVERGENCES
     # drift is caught: a renamed engine knob, a stale divergence entry
     monkeypatch.setattr(spec_mod, "_alias_map_checked", False)

@@ -226,6 +226,70 @@ def test_release_while_a_stacking_task_runs_reruns_it(cuda):
         rt.shutdown()
 
 
+def test_fleet_runs_stacking_in_its_hosts_on_the_card(cuda):
+    """A 2 x 2 fleet on the card runs stacking tasks inside its host
+    processes: every host launches the kernel once per task it completed
+    (its own counter, read through its stats frames), and each coadd,
+    fetched from the cache of the executor that ran it through its host's
+    peer server, equals the plain version on the card."""
+    import dataclasses
+
+    from repro_torch.apps import astro
+    from repro_torch.experiments import ObserveSpec, RuntimeEngine
+    from repro_torch.fleet.host import PeerClient
+
+    base = astro.flat_spec(32, 4, 4)
+    spec = dataclasses.replace(
+        base, hosts=2, threads_per_host=2,
+        workload=dataclasses.replace(base.workload,
+                                     output_bytes=astro.H * astro.W * 4),
+        observe=ObserveSpec(metrics=True, metrics_interval_s=0.25))
+    eng = RuntimeEngine(task_fn_name="repro_torch.apps.astro:stack_object",
+                        device="cuda").prepare(spec)
+    client = PeerClient(eng.runtime.manager.codec)
+    try:
+        rep = eng.run(payload_factory=astro.make_tiles, timeout=180.0)
+        rt = eng.runtime
+        assert rep.n_completed == 32 and rep.n_failed == 0
+        hosts = rt.manager.cluster.per_host()
+        launched = sum(h["metrics"]["gauges"]["kernel.stack_rois.launches"]
+                       for h in hosts.values())
+        assert len(hosts) == 2 and launched == rep.n_completed
+        assert all(h["metrics"]["gauges"]["device.memory_allocated"] > 0
+                   for h in hosts.values())
+        for t in rt.dispatcher.completed:
+            host = rt.workers[t.executor].host
+            got = client.fetch((host.peer_host, host.peer_port), t.executor,
+                               f"{t.tid}.out").to(cuda)
+            tiles = torch.cat([rt.store.get(oid)[1].to(cuda)
+                               for oid in t.inputs])
+            want = stack_rois_ref(
+                tiles, *astro.coadd_params(tiles, [int(o[3:])
+                                                   for o in t.inputs]))
+            want = want / tiles.shape[0]
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()))
+    finally:
+        client.close()
+        eng.shutdown()
+
+
+def test_fleet_refuses_cuda_where_there_is_none():
+    """Runs on every machine: without a card, a fleet on the default
+    device raises at construction, before any host is spawned."""
+    from repro_torch.fleet import FleetRuntime
+
+    if torch.cuda.is_available():
+        rt = FleetRuntime(hosts=0)        # the default device is the card
+        try:
+            assert rt.device.type == "cuda"
+        finally:
+            rt.shutdown()
+        return
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        FleetRuntime(hosts=2, threads_per_host=2, device="cuda")
+
+
 def test_serve_over_diffusion_holds_stamped_pages_on_the_card(cuda):
     """A small sessions binding through the serve engine on the card, each
     KV page a host ``uint8`` tensor stamped with its index: every input a

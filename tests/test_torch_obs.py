@@ -361,10 +361,12 @@ def test_sim_twin_spec_strips_observe_and_coherence():
     assert twin.workload == WorkloadSpec(name="par", trace_path="x.jsonl")
     assert twin.cluster == spec.cluster and twin.seed == spec.seed
     jtwin = jobs.sim_twin_spec(_jax(spec), trace_path="x.jsonl")
-    d = jtwin.to_dict()
-    for k in ("hosts", "threads_per_host", "wire_batch", "local_dispatch"):
-        d.pop(k)
-    assert twin.to_dict() == d
+    assert twin.to_dict() == jtwin.to_dict()
+    # a fleet spec's twin is the in-process layout, as the reference's
+    fleet = dataclasses.replace(spec, hosts=2, threads_per_host=2,
+                                wire_batch=8, local_dispatch=True)
+    assert pobs.sim_twin_spec(fleet).to_dict() \
+        == jobs.sim_twin_spec(_jax(fleet)).to_dict()
 
 
 # --------------------------------------------------------------------------
