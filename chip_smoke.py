@@ -207,7 +207,33 @@ Phases, each reported on its own lines:
      host's device memory; (c) 2 x 8 on the first 4,000 requests, host
      ``h1`` SIGKILLed after 1,000 completions: the run drains with every
      task completed, the victim's executors leave the pool, and its
-     process no longer holds device memory in nvidia-smi.
+     process no longer holds device memory in nvidia-smi;
+ 15. the command line, run as a user types it (``python -m
+     repro_torch.apps.<cli>`` subprocesses with ``PYTHONPATH=src``) on the
+     first 4,000 requests of phase 14's locality-30 trace, recorded to a
+     trace file that the spec files name, shape-only (the CLIs pass no
+     payload factory, in the reference as here, so no tensor moves and no
+     kernel launches), 1 GiB caches.  (a) ``run_experiment describe`` must
+     give the spec's fingerprint, and ``run --engine sim`` the in-process
+     simulator's report (``wall_s`` aside); (b) ``run --engine runtime
+     --barrier-every 64 --trace-out`` without ``--device`` on 64 executors
+     must name the card on stderr as nvidia-smi does, and its report's
+     scheduling fields and every task's placement must equal an in-process
+     ``RuntimeEngine(device="cuda")`` run's, with no kernel launched;
+     ``diff`` on its trace prints the sim twin's divergence; (c) the same
+     spec on 2 host processes x 32 threads through the CLI must place every
+     task as (b) did, and each host's stats frames must show device memory
+     reserved on the card and no kernel launched; (d) ``mk_workload
+     generate`` with the sine, Zipf and join flags must write an in-process
+     ``record`` of the same generator byte for byte, and ``mk_workload
+     run`` replays it on the card; (e) a run with the telemetry plane on
+     (an endpoint on a free port and a JSONL sink), paced over about 10 s
+     of wall clock: ``monitor --attach --once`` while it runs and
+     ``monitor --tail --once`` after it must show the pool of 64, the
+     queue depth and, at the end, every request completed; (f) the
+     location index's Figure 2 timing (``time_ops`` of 200,000 ops, central
+     and 8 shards) and the P-RLS model's aggregate lookups/s at 1 to
+     1,000,000 nodes, labelled as host-clock numbers.
 
 Phase 2 runs the stacking kernel at the reference's test shapes and the
 main path's (N=8 and N=32 at 100x100), each beside the launch floor (the
@@ -305,6 +331,22 @@ FLEET_PARITY, FLEET_FREE, FLEET_FAILURE = (2, 32), (4, 16), (2, 8)
 FLEET_FAILURE_TASKS, FLEET_KILL_AFTER = 4_000, 1_000
 FLEET_TASK_FN = "repro_torch.apps.astro:stack_object"
 FLEET_RING = 1 << 21
+#: phase 15: the command line on phase 14 (c)'s traffic (the first 4,000
+#: requests of the locality-30 trace, shape-only), replayed with a barrier
+#: every 64 requests on 64 executors in process and on 2 hosts x 32 threads
+#: (a barrier must not exceed the pool for the replay to be deterministic);
+#: the observed run paced on the wall clock over about this many seconds so
+#: the monitor can attach while it runs; the index timed at the size of
+#: benchmarks/bench_index.py's default and the P-RLS model at its node counts
+CLI_TASKS, CLI_BARRIER, CLI_FLEET = 4_000, 64, (2, 32)
+CLI_OBSERVED_S = 10.0
+CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+#: the verify recipe's sine, Zipf and join generation flags
+MK_TASKS = 1_000
+MK_FLAGS = ("--arrivals", "sine", "--popularity", "zipf",
+            "--inputs-per-task", 3, "--input-corr", 0.8, "--tasks", MK_TASKS)
+INDEX_OPS, INDEX_SHARDS = 200_000, 8
+PRLS_NODES = (1, 15, 1_000, 32_000, 1_000_000)
 
 STACKING_TPU_KERNEL = "src/repro/kernels/stacking/stacking.py:26"
 STACKING_SOURCE = "src/repro_torch/kernels/stacking/csrc/stack_rois.cu"
@@ -4719,6 +4761,446 @@ def phase_fleet(card: str) -> dict:
                          + sum(free["launches_hosts"].values()))}
 
 
+# --------------------------------------------------------------------------
+# phase 15: the command line, run as a user types it
+# --------------------------------------------------------------------------
+
+def _cli_start(app: str, *args) -> dict:
+    """Start ``python -m repro_torch.apps.<app> args`` from the checkout's
+    root with ``PYTHONPATH=src``."""
+    import os
+
+    argv = [sys.executable, "-m", f"repro_torch.apps.{app}", *map(str, args)]
+    proc = subprocess.Popen(
+        argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    return {"argv": argv[2:], "proc": proc, "t0": time.monotonic()}
+
+
+def _cli_stop(run: dict) -> None:
+    """Kill a started CLI that is still running (a check failed first)."""
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+        run["proc"].wait()
+
+
+def _cli_done(run: dict, check: bool = True) -> dict:
+    """Wait for a started CLI: its stdout, stderr and wall seconds.
+    Raises on a non-zero exit unless ``check`` is off."""
+    proc = run["proc"]
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        _cli_stop(run)
+    if check and proc.returncode != 0:
+        raise AssertionError(f"{' '.join(run['argv'])} exited "
+                             f"{proc.returncode}: {stderr[-2000:]}")
+    return {"stdout": stdout, "stderr": stderr, "rc": proc.returncode,
+            "seconds": time.monotonic() - run["t0"]}
+
+
+def _cli(app: str, *args, check: bool = True) -> dict:
+    return _cli_done(_cli_start(app, *args), check)
+
+
+def _cli_report(path: Path):
+    from repro_torch.experiments import RunReport
+
+    return RunReport.from_dict(json.loads(path.read_text()))
+
+
+def _device_line(out: dict, card: str) -> str:
+    """The run's device line on stderr; it must name the card as
+    nvidia-smi does."""
+    lines = [ln for ln in out["stderr"].splitlines()
+             if ln.startswith("# device: ")]
+    if lines != [f"# device: {card}"]:
+        raise AssertionError(f"CLI device line {lines}, want the card "
+                             f"{card!r}")
+    return lines[0]
+
+
+def _outcome_placements(trace: Path) -> list:
+    from repro_torch.workloads import read_outcomes
+
+    return sorted((o["tid"], o["executor"], o["cache_hits"], o["peer_hits"],
+                   o["cache_misses"]) for o in read_outcomes(trace))
+
+
+def _n_differing(a: list, b: list) -> int:
+    return sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _frame_numbers(frame: str) -> dict:
+    """The queue depth, pool size and completions a monitor frame shows."""
+    import re
+
+    out = {}
+    for key in ("queue", "pool", "completed"):
+        m = re.search(rf"\b{key}=\s*(\d+)", frame)
+        if m is None:
+            raise AssertionError(f"monitor frame shows no {key}: {frame!r}")
+        out[key] = int(m.group(1))
+    return out
+
+
+def _cli_specs(workdir: Path) -> dict:
+    """Phase 14 (c)'s traffic as spec files: the first CLI_TASKS requests
+    of the locality-30 trace recorded to a trace the specs name, on 64
+    executors in process and on CLI_FLEET hosts x threads (with its
+    telemetry sink, where each host's stats frames land)."""
+    import dataclasses
+
+    from repro_torch.experiments import (ObserveSpec, WorkloadSpec,
+                                         build_workload)
+    from repro_torch.workloads import Workload, record
+
+    hosts, tph = CLI_FLEET
+    fleet = _fleet_spec(hosts, tph)
+    full = build_workload(fleet.workload)
+    trace = workdir / "locality30_first4000.jsonl"
+    record(Workload(full.name, full.objects, full.events[:CLI_TASKS],
+                    full.spec), trace)
+    fleet = dataclasses.replace(
+        fleet, workload=WorkloadSpec(name="astro", trace_path=str(trace)))
+    flat = dataclasses.replace(fleet, hosts=0, threads_per_host=1)
+    specs = {"flat": flat, "fleet": dataclasses.replace(
+        fleet, observe=ObserveSpec(
+            metrics=True, metrics_interval_s=0.5,
+            metrics_sink_path=str(workdir / "fleet.metrics.jsonl")))}
+    paths = {}
+    for name, spec in specs.items():
+        paths[name] = workdir / f"{name}.json"
+        spec.save(paths[name])
+    return {**specs, "paths": paths, "trace": trace}
+
+
+def _in_process(specs: dict, workdir: Path) -> dict:
+    """What the CLIs are held to: the simulator and a
+    ``RuntimeEngine(device="cuda")`` on the flat spec in this process,
+    and an in-process ``record`` of the generator ``mk_workload
+    generate`` is given (MK_FLAGS, at the CLI's defaults)."""
+    from repro_torch import workloads as W
+    from repro_torch.experiments import RuntimeEngine, run_experiment
+    from repro_torch.kernels.build import COUNTERS
+
+    sim = run_experiment(specs["flat"], engine="sim")
+    for c in COUNTERS.values():
+        c.reset()
+    eng = RuntimeEngine(device="cuda").prepare(specs["flat"])
+    try:
+        rt = eng.run(barrier_every=CLI_BARRIER, timeout=600.0)
+        placements = _placements(eng.runtime)
+    finally:
+        eng.shutdown()
+    launched = {k: c.value for k, c in COUNTERS.items() if c.value}
+    rate, mb = 8.0, 10**6
+    record = workdir / "gen_record.jsonl"
+    W.record(W.generate(
+        "wl", W.SineWaveArrivals(mean_rate=rate, amplitude=0.9 * rate,
+                                 period_s=120.0),
+        W.ZipfPopularity(alpha=1.1, k=3, corr=0.8),
+        n_tasks=MK_TASKS, n_objects=250, object_bytes=int(10.0 * mb),
+        compute_seconds=0.5, store_metadata_ops=0, seed=0), record)
+    return {"sim": sim, "runtime": rt, "placements": placements,
+            "launched": launched, "record": record}
+
+
+def _check_experiment(card: str, runs: dict, ref: dict, specs: dict,
+                      workdir: Path) -> dict:
+    """(a)-(c): the CLI's describe, sim, runtime and fleet runs against
+    the in-process engines."""
+    from repro_torch.fleet import reports_scheduling_equal
+
+    flat = specs["flat"]
+    d = _cli_done(runs["describe"])
+    desc = json.loads(d["stdout"])
+    if (desc["fingerprint"] != flat.fingerprint()
+            or desc["workload"]["n_tasks"] != CLI_TASKS):
+        raise AssertionError(f"describe: {desc['fingerprint']} "
+                             f"{desc['workload']}")
+    r = _cli_done(runs["sim"])
+    json.loads(r["stdout"])                      # stdout is pure JSON
+    sim_cli = _cli_report(workdir / "sim.json")
+    sim_diff = sim_cli.diff(ref["sim"], ignore=("wall_s",))
+    log(f"[cli] (a) describe {desc['fingerprint']}: {CLI_TASKS} requests "
+        f"over {desc['workload']['n_objects']} files "
+        f"({d['seconds']:.1f}s); run --engine sim ({r['seconds']:.1f}s): "
+        f"hit ratio {sim_cli.cache_hit_ratio:.4f}, fields differing from "
+        f"the in-process sim: {sorted(sim_diff) or 'none'}")
+    if sim_diff:
+        raise AssertionError(f"CLI sim report differs: {sim_diff}")
+    out = {"describe": {"fingerprint": desc["fingerprint"],
+                        "workload": desc["workload"],
+                        "seconds": d["seconds"]},
+           "sim": {"cache_hit_ratio": sim_cli.cache_hit_ratio,
+                   "seconds": r["seconds"], "diff_fields": sorted(sim_diff)}}
+    # (b) no --device: the card, against RuntimeEngine(device="cuda")
+    r = _cli_done(runs["runtime"])
+    json.loads(r["stdout"])
+    line = _device_line(r, card)
+    rt_cli = _cli_report(workdir / "runtime.json")
+    rt_diff = reports_scheduling_equal(rt_cli, ref["runtime"])
+    per_b = _outcome_placements(workdir / "runtime.trace.jsonl")
+    n_moved = _n_differing(per_b, ref["placements"])
+    log(f"[cli] (b) run --engine runtime --barrier-every {CLI_BARRIER} "
+        f"({r['seconds']:.1f}s, no --device): stderr {line!r}; "
+        f"{rt_cli.n_completed} completed, hit ratio "
+        f"{rt_cli.cache_hit_ratio:.4f}, bytes {rt_cli.bytes_by_kind}; "
+        f"scheduling fields differing from RuntimeEngine(device='cuda'): "
+        f"{sorted(rt_diff) or 'none'}; tasks placed differently: "
+        f"{n_moved}; kernel launches in process (shape-only): "
+        f"{ref['launched'] or 'none'}")
+    if rt_diff or n_moved or rt_cli.n_completed != CLI_TASKS:
+        raise AssertionError(f"CLI runtime report differs: {rt_diff}, "
+                             f"{n_moved} tasks placed differently")
+    if ref["launched"]:
+        raise AssertionError(f"a shape-only run launched kernels: "
+                             f"{ref['launched']}")
+    out["runtime"] = {"device_line": line, "seconds": r["seconds"],
+                      "n_completed": rt_cli.n_completed,
+                      "cache_hit_ratio": rt_cli.cache_hit_ratio,
+                      "bytes_by_kind": rt_cli.bytes_by_kind,
+                      "diff_fields": sorted(rt_diff),
+                      "placements_differing": n_moved}
+    # (c) the same spec on host processes through the CLI
+    hosts, tph = CLI_FLEET
+    r = _cli_done(runs["fleet"])
+    line_c = _device_line(r, card)
+    fl_cli = _cli_report(workdir / "fleet.json")
+    n_moved_c = _n_differing(
+        _outcome_placements(workdir / "fleet.trace.jsonl"), per_b)
+    fl_diff = reports_scheduling_equal(fl_cli, ref["runtime"])
+    host_dev = {}
+    for ln in (workdir / "fleet.metrics.jsonl").read_text().splitlines():
+        for h, snap in json.loads(ln).get("hosts", {}).items():
+            g = snap.get("metrics", {}).get("gauges", {})
+            seen = host_dev.setdefault(h, {"reserved": 0, "launches": {}})
+            seen["reserved"] = max(seen["reserved"],
+                                   int(g.get("device.memory_reserved", 0)))
+            seen["launches"].update({k: v for k, v in g.items()
+                                     if k.startswith("kernel.")})
+    log(f"[cli] (c) {hosts} hosts x {tph} threads through the CLI "
+        f"({r['seconds']:.1f}s, spawn included): stderr {line_c!r}; "
+        f"{fl_cli.n_completed} completed; tasks placed differently from "
+        f"(b): {n_moved_c}; scheduling fields differing from the "
+        f"in-process run: {sorted(fl_diff) or 'none'}; each host's device "
+        f"memory reserved and kernel launches, from its stats frames: "
+        f"{dict(sorted(host_dev.items()))}")
+    if n_moved_c or fl_diff or fl_cli.n_completed != CLI_TASKS:
+        raise AssertionError(f"CLI fleet run differs: {fl_diff}, "
+                             f"{n_moved_c} tasks placed differently")
+    if sorted(host_dev) != [f"h{i}" for i in range(hosts)] or any(
+            v["reserved"] <= 0 or v["launches"] for v in host_dev.values()):
+        raise AssertionError(f"fleet hosts not on the card, or launching "
+                             f"kernels: {host_dev}")
+    out["fleet"] = {"layout": [hosts, tph], "device_line": line_c,
+                    "seconds": r["seconds"],
+                    "n_completed": fl_cli.n_completed,
+                    "placements_differing": n_moved_c,
+                    "diff_fields": sorted(fl_diff), "hosts": host_dev}
+    return out
+
+
+def _check_generate(run: dict, ref: dict, workdir: Path) -> dict:
+    """(d), first half: ``mk_workload generate`` against ``record``."""
+    g = _cli_done(run)
+    same = (workdir / "gen_cli.jsonl").read_bytes() \
+        == ref["record"].read_bytes()
+    log(f"[cli] (d) mk_workload generate {' '.join(map(str, MK_FLAGS))} "
+        f"({g['seconds']:.1f}s): {g['stderr'].strip()}; byte-identical "
+        f"to an in-process record: {same}")
+    if not same:
+        raise AssertionError("mk_workload generate differs from record")
+    return {"byte_identical": same, "generate_seconds": g["seconds"]}
+
+
+def _check_mk_run(card: str, run: dict) -> dict:
+    """(d), second half: ``mk_workload run`` of that trace on the card."""
+    r = _cli_done(run)
+    line = _device_line(r, card)
+    rep = json.loads(r["stdout"])
+    log(f"[cli] (d) mk_workload run --engine runtime (done within "
+        f"{r['seconds']:.1f}s, beside (e)): "
+        f"stderr {line!r}; {rep['n_completed']} completed, mean inputs "
+        f"{rep['mean_inputs_per_task']:.3f}, hit ratio "
+        f"{rep['cache_hit_ratio']:.4f}, full/partial/zero-hit tasks "
+        f"{rep['full_hit_tasks']}/{rep['partial_hit_tasks']}/"
+        f"{rep['zero_hit_tasks']}")
+    if rep["n_completed"] != MK_TASKS or rep["engine"] != "runtime":
+        raise AssertionError(f"mk_workload run: {rep['n_completed']}")
+    return {"run_seconds": r["seconds"], "device_line": line,
+            "n_completed": rep["n_completed"],
+            "cache_hit_ratio": rep["cache_hit_ratio"]}
+
+
+def _check_diff(run: dict) -> dict:
+    """(b), last: ``diff SPEC TRACE`` of the runtime run's trace."""
+    dv = _cli_done(run)
+    log(f"[cli] (b) diff SPEC TRACE (done within {dv['seconds']:.1f}s, "
+        f"beside (e)):")
+    for ln in dv["stdout"].splitlines():
+        log(f"[cli]     {ln}")
+    if not dv["stdout"].startswith(f"matched {CLI_TASKS} task(s)"):
+        raise AssertionError(f"diff matched otherwise: {dv['stdout']!r}")
+    return {"divergence": dv["stdout"].splitlines(),
+            "seconds": dv["seconds"]}
+
+
+def _cli_monitor(card: str, specs: dict, workdir: Path) -> dict:
+    """(e): a run with the telemetry plane on, paced on the wall clock;
+    ``monitor --attach`` while it runs and ``monitor --tail`` after."""
+    import dataclasses
+    import socket
+
+    from repro_torch.experiments import ObserveSpec, build_workload
+
+    port = _free_port()
+    spec = dataclasses.replace(specs["flat"], observe=ObserveSpec(
+        metrics=True, metrics_interval_s=0.25, metrics_port=port,
+        metrics_sink_path=str(workdir / "observed.metrics.jsonl")))
+    spec.save(workdir / "observed.json")
+    scale = CLI_OBSERVED_S / build_workload(spec.workload).duration
+    run = _cli_start("run_experiment", "run", workdir / "observed.json",
+                     "--engine", "runtime", "--time-scale", f"{scale:.3f}")
+    attached = None
+    deadline = time.monotonic() + 120.0
+    try:
+        while (attached is None and run["proc"].poll() is None
+               and time.monotonic() < deadline):
+            try:      # the endpoint is up once the run's engine is prepared
+                socket.create_connection(("127.0.0.1", port), 0.5).close()
+            except OSError:
+                time.sleep(0.1)
+                continue
+            a = _cli("monitor", "--attach", f"127.0.0.1:{port}", "--once",
+                     check=False)
+            if "queue=" in a["stdout"]:
+                attached = a
+        r = _cli_done(run)
+    finally:
+        _cli_stop(run)
+    if attached is None:
+        raise AssertionError("monitor --attach never drew a frame while "
+                             "the run was live")
+    line = _device_line(r, card)
+    rep = json.loads(r["stdout"])
+    tail = _cli("monitor", "--tail", spec.observe.metrics_sink_path,
+                "--once")
+    live, final = (_frame_numbers(x["stdout"]) for x in (attached, tail))
+    log(f"[cli] (e) observed run at time scale {scale:.3f} "
+        f"({r['seconds']:.1f}s, stderr {line!r}): {rep['n_completed']} "
+        f"completed, {rep['telemetry'].get('n_samples')} telemetry samples")
+    for name, x in (("attach", attached), ("tail", tail)):
+        log(f"[cli] (e) monitor --{name} --once ({x['seconds']:.1f}s):")
+        for ln in x["stdout"].splitlines():
+            log(f"[cli]     {ln}")
+    if (live["pool"] != spec.cluster.n_nodes
+            or final["pool"] != spec.cluster.n_nodes
+            or final["queue"] != 0 or final["completed"] != CLI_TASKS
+            or rep["n_completed"] != CLI_TASKS):
+        raise AssertionError(f"monitor frames: live {live}, final {final}")
+    return {"time_scale": scale, "seconds": r["seconds"],
+            "device_line": line, "attached": live, "tailed": final,
+            "n_samples": rep["telemetry"].get("n_samples")}
+
+
+def _index_timing() -> dict:
+    """(f): the location index's Figure 2 timing on the host, as
+    benchmarks/bench_index.py takes it, and the P-RLS model."""
+    from repro_torch.core import (LocationIndex, ShardedIndex,
+                                  prls_aggregate_throughput)
+
+    central = LocationIndex().time_ops(INDEX_OPS)
+    sharded_ix = ShardedIndex(n_shards=INDEX_SHARDS)
+    sharded = sharded_ix.time_ops(INDEX_OPS)
+    ops = sharded_ix.n_inserts + sharded_ix.n_lookups + sharded_ix.n_removes
+    prls = {n: prls_aggregate_throughput(n) for n in PRLS_NODES}
+    lookups_s = 1.0 / central["lookup_s"]
+    log(f"[cli] (f) index timing on the host CPU of the card's machine "
+        f"(host clock, not a device metric), {INDEX_OPS} ops each: central "
+        f"insert {central['insert_s'] * 1e6:.4f} us, lookup "
+        f"{central['lookup_s'] * 1e6:.4f} us, {lookups_s:.0f} lookups/s "
+        f"(paper: 4.18M/s, Java 2008); {INDEX_SHARDS}-shard insert "
+        f"{sharded['insert_s'] * 1e6:.4f} us, lookup "
+        f"{sharded['lookup_s'] * 1e6:.4f} us, {ops} ops counted")
+    log("[cli] (f) P-RLS model, aggregate lookups/s: " + ", ".join(
+        f"{n} nodes {v:.0f}" for n, v in prls.items()))
+    if ops != 3 * INDEX_OPS:
+        raise AssertionError(f"sharded index counted {ops} ops")
+    return {"clock": "host", "n": INDEX_OPS,
+            "central_insert_us": central["insert_s"] * 1e6,
+            "central_lookup_us": central["lookup_s"] * 1e6,
+            "central_lookups_per_s": lookups_s,
+            "sharded_insert_us": sharded["insert_s"] * 1e6,
+            "sharded_lookup_us": sharded["lookup_s"] * 1e6,
+            "prls_aggregate_lookups_per_s": prls}
+
+
+def phase_cli(card: str) -> dict:
+    """The CLIs in two waves of concurrent subprocesses (each costs
+    seconds of interpreter and torch import before it works): describe,
+    the sim, the runtime, the fleet and generate, with the in-process
+    runs beside them; then diff, mk_workload run and the observed run
+    with its monitors; then the index timing alone."""
+    import shutil
+
+    t0 = time.monotonic()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    specs = _cli_specs(CLI_DIR)
+    paths, w = specs["paths"], CLI_DIR
+    log(f"[cli] the first {CLI_TASKS} requests of Table 2's locality-"
+        f"{FLEET_LOCALITY} trace, shape-only (the CLI passes no payload "
+        f"factory, so no tensor moves and no kernel launches), 1 GiB caches, "
+        f"written to {specs['trace'].relative_to(ROOT)} and named by the "
+        f"spec files; each CLI is a `python -m repro_torch.apps.<cli>` "
+        f"subprocess with PYTHONPATH=src; {card}")
+    first = {
+        "describe": ("run_experiment", "describe", paths["flat"]),
+        "sim": ("run_experiment", "run", paths["flat"], "--engine", "sim",
+                "--out", w / "sim.json"),
+        "runtime": ("run_experiment", "run", paths["flat"], "--engine",
+                    "runtime", "--barrier-every", CLI_BARRIER,
+                    "--trace-out", w / "runtime.trace.jsonl",
+                    "--out", w / "runtime.json"),
+        "fleet": ("run_experiment", "run", paths["fleet"], "--engine",
+                  "runtime", "--barrier-every", CLI_BARRIER, "--trace-out",
+                  w / "fleet.trace.jsonl", "--out", w / "fleet.json"),
+        "generate": ("mk_workload", "generate", *MK_FLAGS,
+                     "--out", w / "gen_cli.jsonl")}
+    runs, later = {}, {}
+    try:
+        for name, argv in first.items():
+            runs[name] = _cli_start(*argv)
+        ref = _in_process(specs, w)
+        out = _check_experiment(card, runs, ref, specs, w)
+        out["workload"] = _check_generate(runs["generate"], ref, w)
+        later["diff"] = _cli_start("run_experiment", "diff", paths["flat"],
+                                   w / "runtime.trace.jsonl")
+        later["mk_run"] = _cli_start("mk_workload", "run",
+                                     w / "gen_cli.jsonl", "--engine",
+                                     "runtime")
+        out["monitor"] = _cli_monitor(card, specs, w)
+        out["runtime"]["diff"] = _check_diff(later["diff"])
+        out["workload"].update(_check_mk_run(card, later["mk_run"]))
+    finally:
+        for run in (*runs.values(), *later.values()):
+            _cli_stop(run)
+    out["index"] = _index_timing()
+    out["wall_s"] = time.monotonic() - t0
+    log(f"[cli] phase 15 took {out['wall_s']:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--json", type=Path, default=None,
@@ -4749,6 +5231,7 @@ def main(argv=None) -> int:
     vision = phase_vision_train(env["nvidia_smi"])
     serve_diffusion = phase_serve_diffusion(env["nvidia_smi"])
     fleet = phase_fleet(env["nvidia_smi"])
+    cli = phase_cli(env["nvidia_smi"])
 
     main_row = next(r for r in kernels["stack_rois"]
                     if r["case"].startswith("main/flat"))
@@ -4902,7 +5385,7 @@ def main(argv=None) -> int:
              "moe": moe, "ssm_train": ssm_trained, "encdec": encdec,
              "elastic": elastic, "vision_train": vision,
              "serve_diffusion": serve_diffusion, "fleet": fleet,
-             "kernels_line": line,
+             "cli": cli, "kernels_line": line,
              "seconds": time.monotonic() - t_start},
             indent=2, default=str) + "\n")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")

@@ -6,7 +6,8 @@ runtime's executor caches holding device tensors.
 """
 from .cache import EvictionPolicy, ExecutorCache
 from .channel import CallbackChannel, Channel, ChannelClosed, LocalChannel
-from .index import IndexUpdate, LocationIndex, ShardedIndex
+from .index import (IndexUpdate, LocationIndex, ShardedIndex,
+                    prls_aggregate_throughput, prls_latency_model)
 from .objects import DataObject, Task, TaskState, make_objects, uniform_tasks
 from .policies import Decision, DispatchPolicy, decide
 from .provisioner import AllocationPolicy, DynamicResourceProvisioner
@@ -45,5 +46,7 @@ __all__ = [
     "TestbedSpec",
     "decide",
     "make_objects",
+    "prls_aggregate_throughput",
+    "prls_latency_model",
     "uniform_tasks",
 ]

@@ -367,8 +367,15 @@ class _TelemetrySampler(threading.Thread):
                                     per_host=per_host)
 
     def run(self) -> None:
-        while not self.stop_evt.wait(self.eng.telemetry.interval_s):
+        # a fixed-rate tick on the grid t0 + k * interval: the time a sample
+        # takes does not push the later ones back, and a sample that overran
+        # whole intervals skips the ticks it missed
+        interval = self.eng.telemetry.interval_s
+        due = self.t0 + interval
+        while not self.stop_evt.wait(max(due - time.monotonic(), 0.0)):
             self.sample_once()
+            late = time.monotonic() - due
+            due += interval * (int(late // interval) + 1 if late > 0 else 1)
 
     def stop(self) -> None:
         self.stop_evt.set()
@@ -635,13 +642,19 @@ def engine_names() -> list[str]:
     return sorted([*ENGINES, *LAZY_ENGINES])
 
 
-def make_engine(name: str):
+def make_engine(name: str, device: str | torch.device = "cuda"):
+    """The engine registered as ``name``.  ``device`` goes to the engines
+    that run the threaded runtime (``runtime``, ``serve``); the simulator
+    runs on the host and takes none."""
     if name in ENGINES:
-        return ENGINES[name]()
-    if name in LAZY_ENGINES:
-        module, cls = LAZY_ENGINES[name]
-        return getattr(importlib.import_module(module), cls)()
-    raise ValueError(f"unknown engine {name!r} (known: {engine_names()})")
+        cls = ENGINES[name]
+    elif name in LAZY_ENGINES:
+        module, attr = LAZY_ENGINES[name]
+        cls = getattr(importlib.import_module(module), attr)
+    else:
+        raise ValueError(f"unknown engine {name!r} "
+                         f"(known: {engine_names()})")
+    return cls(device=device) if issubclass(cls, RuntimeEngine) else cls()
 
 
 def run_experiment(spec: ExperimentSpec, engine: str = "sim",
@@ -651,7 +664,8 @@ def run_experiment(spec: ExperimentSpec, engine: str = "sim",
     An engine named by string is owned here and shut down before
     returning (the threaded runtime's workers must not outlive the run);
     pass an engine *instance* instead to keep it alive for inspection (or
-    to run the runtime on another device than its default ``"cuda"``).
+    to run the runtime on another device than its default ``"cuda"``:
+    ``make_engine(name, device=...)``).
     """
     owned = isinstance(engine, str)
     eng = make_engine(engine) if owned else engine

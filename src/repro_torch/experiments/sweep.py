@@ -18,6 +18,10 @@ directly is rejected); the ``seeds=[...]`` axis adds paired replications:
 replication r re-runs EVERY cell with ``seed`` and ``workload.seed`` both
 set to ``seeds[r]``, so cells stay comparable within each replication.
 
+``device`` (default ``"cuda"``) is where the runtime and serve engines
+build each cell; the simulator ignores it.  It is not written to either
+file: both are the reference's, whatever the device.
+
 Workloads are generated once per distinct binding and shared across cells
 (a `Workload` is immutable; engines materialise fresh Tasks per run), so an
 8-cell policy sweep pays one generation, not eight.
@@ -30,6 +34,8 @@ import json
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Mapping, Optional, Sequence
+
+import torch
 
 from .engines import build_workload, make_engine
 from .report import RunReport
@@ -48,7 +54,8 @@ class Sweep:
                  grid: Mapping[str, Sequence],
                  *, seeds: Optional[Sequence[int]] = None,
                  engine: str = "sim",
-                 name: Optional[str] = None) -> None:
+                 name: Optional[str] = None,
+                 device: str | torch.device = "cuda") -> None:
         for key in grid:
             if key in ("workload.seed", "seed"):
                 raise ValueError(
@@ -58,6 +65,7 @@ class Sweep:
         self.grid = {k: list(v) for k, v in grid.items()}
         self.seeds = list(seeds) if seeds is not None else None
         self.engine = engine
+        self.device = device
         self.name = name or f"{base.name}-sweep"
 
     # ------------------------------------------------------------------
@@ -110,7 +118,7 @@ class Sweep:
                                   sort_keys=True)
                 if wkey not in wl_cache:
                     wl_cache[wkey] = build_workload(cell.spec.workload)
-                eng = make_engine(self.engine)
+                eng = make_engine(self.engine, device=self.device)
                 try:
                     eng.prepare(cell.spec, workload=wl_cache[wkey])
                     report = eng.run(**(run_kw or {}))

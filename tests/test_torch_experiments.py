@@ -240,6 +240,34 @@ def test_sweep_results_match_reference(tmp_path):
     assert [rec["index"] for rec, _ in back] == list(range(8))
 
 
+def test_sweep_runs_the_runtime_on_the_device_it_is_given(tmp_path):
+    """``Sweep(..., device="cpu")`` builds every runtime cell on the CPU;
+    the device goes into neither file, so the manifest is the
+    reference's byte for byte.  One executor runs its queue in order, so
+    the scheduling fields equal the reference's sweep too."""
+    from repro_torch.fleet import reports_scheduling_equal
+
+    base = dataclasses.replace(
+        BASE, cluster=ClusterSpec(n_nodes=1), provisioner=None,
+        workload=dataclasses.replace(BASE.workload, n_tasks=40))
+    grid = {"policy": ["first-available", "max-compute-util"]}
+    sw = Sweep(base, grid, engine="runtime", device="cpu")
+    ran = sw.run(out_dir=tmp_path / "pt")
+    jax_exp.Sweep(_jax(base), grid, engine="runtime").run(
+        out_dir=tmp_path / "jax")
+    assert ((tmp_path / "pt" / "manifest.json").read_text()
+            == (tmp_path / "jax" / "manifest.json").read_text())
+    want = load_results(tmp_path / "jax")
+    assert len(ran) == len(want) == 2
+    for (cell, rep), (line, ref) in zip(ran, want):
+        assert rep.engine == "runtime" and rep.n_completed == 40
+        assert line["overrides"] == cell.overrides
+        assert reports_scheduling_equal(rep, ref) == {}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            Sweep(base, grid, engine="runtime").run()
+
+
 def test_sweep_refuses_a_seed_axis_in_the_grid():
     with pytest.raises(ValueError, match="seed-paired"):
         Sweep(BASE, {"workload.seed": [0, 1]})

@@ -462,6 +462,37 @@ def test_runtime_metrics_off_is_free_and_identical(runtime_runs):
         assert getattr(off_rep, f) == getattr(runtime_runs["pt"][0], f), f
 
 
+def test_runtime_sampler_ticks_at_a_fixed_rate():
+    """A sample that takes most of an interval does not push the later
+    ones back: the k-th sample lands near k intervals after the start (a
+    tick that waited an interval after each sample would drift by the
+    sample's cost every tick)."""
+    import time
+    from types import SimpleNamespace
+
+    from repro_torch.experiments.engines import _TelemetrySampler
+
+    interval, cost, n = 0.1, 0.06, 8
+    eng = SimpleNamespace(
+        runtime=SimpleNamespace(sample_metrics=lambda: time.sleep(cost)),
+        _engine_gauges=lambda: None,
+        telemetry=pobs.Telemetry(interval_s=interval))
+    sampler = _TelemetrySampler(eng, time.monotonic())
+    sampler.start()
+    try:
+        deadline = time.monotonic() + 10.0
+        while len(eng.telemetry.series) < n and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        sampler.stop()
+        sampler.join(5.0)
+    stamps = [s["t"] for s in eng.telemetry.series]
+    assert len(stamps) >= n
+    assert stamps == sorted(stamps)
+    # drifting, the n-th stamp would be n * (interval + cost) = 1.28 s
+    assert stamps[n - 1] < n * interval + 2 * cost, stamps
+
+
 def test_report_telemetry_roundtrips_and_diff_ignores():
     rep, _ = _sim(pt_exp, _spec(),
                   _serial_workload(DataObject, pw, 5))
