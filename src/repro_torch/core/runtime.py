@@ -49,6 +49,7 @@ deterministic batch-synchronous rounds).
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from dataclasses import dataclass, field
@@ -71,6 +72,11 @@ from .scheduler import Dispatcher, Dispatch
 #: experiment layer) so the fleet wire protocol can give it a stable
 #: encoding: byte accounting uses DataObject sizes, never payload length.
 SHAPE_ONLY_PAYLOAD = object()
+
+#: the four paths that take the runtime lock once or more a request
+LOCK_SITES = ("submit", "pump", "update", "finish")
+#: with a recorder, the pump takes a realtime anchor at most this often (s)
+ANCHOR_EVERY_S = 1.0
 
 
 def on_device(payload: Any, device: torch.device) -> Any:
@@ -145,6 +151,16 @@ class _InputLedger:
 
 
 @dataclass
+class LockSite:
+    """The runtime lock on one path: acquisitions, seconds from asking for
+    the lock to holding it, and seconds held."""
+
+    acquisitions: int = 0
+    wait_s: float = 0.0
+    hold_s: float = 0.0
+
+
+@dataclass
 class DispatchStats:
     """Lightweight counters/timers on the central dispatch loop.
 
@@ -152,14 +168,21 @@ class DispatchStats:
     wire counters at read time on the fleet), surfaced through
     ``RunReport.dispatch_stats``.  ``lock_hold_s`` accumulates time spent
     inside the runtime lock on the pump path -- the quantity the
-    central-dispatcher bottleneck (Falkon's ~1k tasks/s wall) is made of."""
+    central-dispatcher bottleneck (Falkon's ~1k tasks/s wall) is made of.
+
+    ``lock_sites`` splits the lock by path (``LOCK_SITES``: ``submit``,
+    ``pump``, ``update``, ``finish``) and ``lock_wait_s`` sums their waits.
+    A wait costs two clock reads, so it is always counted; the pump's hold
+    is ``lock_hold_s``'s, and the other paths' holds, a third read, are
+    counted only while a recorder is installed."""
 
     pump_calls: int = 0
-    dispatch_batches: int = 0      # pumps that produced >= 1 dispatch
     dispatches: int = 0
-    max_dispatch_batch: int = 0
     updates_applied: int = 0
     lock_hold_s: float = 0.0
+    lock_wait_s: float = 0.0
+    lock_sites: dict = field(
+        default_factory=lambda: {s: LockSite() for s in LOCK_SITES})
     frames_sent: int = 0           # wire frames (fleet); 0 in-process
     frames_recv: int = 0
     msgs_sent: int = 0             # logical messages inside those frames
@@ -171,11 +194,13 @@ class DispatchStats:
     def as_dict(self) -> dict:
         return {
             "pump_calls": self.pump_calls,
-            "dispatch_batches": self.dispatch_batches,
             "dispatches": self.dispatches,
-            "max_dispatch_batch": self.max_dispatch_batch,
             "updates_applied": self.updates_applied,
             "lock_hold_s": self.lock_hold_s,
+            "lock_wait_s": self.lock_wait_s,
+            **{f"lock_{name}_{k}": getattr(site, k)
+               for name, site in self.lock_sites.items()
+               for k in ("acquisitions", "wait_s", "hold_s")},
             "frames_sent": self.frames_sent,
             "frames_recv": self.frames_recv,
             "msgs_sent": self.msgs_sent,
@@ -395,6 +420,11 @@ class DiffusionRuntime:
         # change -- the experiment layer's RunReport reads pool history here
         self._t0 = time.monotonic()
         self.pool_log: list[tuple[float, int]] = []
+        # with a recorder, each pause of the interpreter's collector is a
+        # ``gc`` span; the hook comes out in shutdown()
+        self._gc_t0: Optional[float] = None
+        if recorder is not None:
+            gc.callbacks.append(self._on_gc)
         for i in range(n_executors):
             self.add_executor()
         # collapse the construction ramp into one t=0 sample
@@ -522,7 +552,9 @@ class DiffusionRuntime:
     # -- execution -------------------------------------------------------------------
     def submit(self, tasks: Iterable[Task]) -> int:
         ts = list(tasks)
+        t_ask = time.perf_counter()
         with self._lock:
+            t_got = time.perf_counter()
             self.dispatcher.submit(ts, time.monotonic())
             self._outstanding += len(ts)
             # a task submitted after its producer terminally failed is
@@ -532,6 +564,7 @@ class DiffusionRuntime:
                 self._outstanding -= dead
                 if self._outstanding == 0:
                     self._done.notify_all()
+            self._count_lock_locked("submit", t_ask, t_got)
         self._pump()
         return len(ts)
 
@@ -613,15 +646,19 @@ class DiffusionRuntime:
 
     def _pump(self) -> None:
         rec = self.recorder
+        t_ask = time.perf_counter()
         with self._lock:
             t0 = time.perf_counter()
             dispatches = self.dispatcher.next_dispatches(time.monotonic())
-            self._note_pump_locked(len(dispatches), time.perf_counter() - t0)
+            hold_s = time.perf_counter() - t0
+            self._note_pump_locked(len(dispatches), hold_s)
+            self._count_lock_locked("pump", t_ask, t0, hold_s)
             qlen = self.dispatcher.queue_len if rec is not None else 0
         if rec is not None:
             # emitted OUTSIDE the runtime lock: the recorder's own lock is
             # the only one recording ever takes on this path
             rec.emit("pump", n=len(dispatches), queue=qlen)
+            rec.anchor(ANCHOR_EVERY_S)
         for d in dispatches:
             w = self.workers.get(d.executor)
             if w is None:
@@ -673,12 +710,17 @@ class DiffusionRuntime:
                 return payload
         obj, payload = self.store.get(oid)
         acc.bytes_store += obj.size_bytes
-        if rec is not None:
-            rec.emit("input", tid=tid, eid=w.eid, oid=oid,
-                     source="store", bytes=obj.size_bytes)
         # the one host-to-device copy of a store read; the cache keeps this
         # same tensor (or refuses it, and then only this task uses it)
-        payload = on_device(payload, w.device)
+        if rec is None:
+            payload = on_device(payload, w.device)
+        else:
+            rec.emit("input", tid=tid, eid=w.eid, oid=oid,
+                     source="store", bytes=obj.size_bytes)
+            t0 = rec.clock()
+            payload = on_device(payload, w.device)
+            rec.span("store_copy", t0, rec.clock() - t0, tid=tid, eid=w.eid,
+                     bytes=obj.size_bytes, parent="stage")
         self._emit(w.admit_update(obj, payload))
         return payload
 
@@ -688,8 +730,11 @@ class DiffusionRuntime:
     def _on_update(self, upd: IndexUpdate) -> None:
         """Consumer side of the update seam (same code path for in-process
         sends and for updates arriving from fleet hosts)."""
+        t_ask = time.perf_counter()
         with self._lock:
+            t_got = time.perf_counter()
             self._on_update_locked(upd)
+            self._count_lock_locked("update", t_ask, t_got)
 
     def _on_update_locked(self, upd: IndexUpdate) -> None:
         self._update_buf.append(upd)
@@ -702,17 +747,44 @@ class DiffusionRuntime:
         st = self.stats
         st.pump_calls += 1
         st.lock_hold_s += hold_s
-        if n_dispatches:
-            st.dispatch_batches += 1
-            st.dispatches += n_dispatches
-            if n_dispatches > st.max_dispatch_batch:
-                st.max_dispatch_batch = n_dispatches
+        st.dispatches += n_dispatches
         m = self.metrics
         if m is not None:
             m.inc("sched.pump_calls")
             if n_dispatches:
                 m.inc("sched.dispatches", n_dispatches)
             m.observe("sched.pump_latency_s", hold_s)
+
+    def _count_lock_locked(self, site: str, t_ask: float, t_got: float,
+                           hold_s: Optional[float] = None) -> None:
+        """Count one acquisition of the lock on ``site``, asked for at
+        ``t_ask`` and held from ``t_got`` (``perf_counter``).  A hold the
+        caller did not time is timed here only while a recorder is
+        installed."""
+        st = self.stats
+        s = st.lock_sites[site]
+        s.acquisitions += 1
+        s.wait_s += t_got - t_ask
+        st.lock_wait_s += t_got - t_ask
+        if hold_s is not None:
+            s.hold_s += hold_s
+        elif self.recorder is not None:
+            s.hold_s += time.perf_counter() - t_got
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        """``gc.callbacks`` hook, installed only with a recorder: one ``gc``
+        span per collection (the collector holds the interpreter lock, so
+        a start and its stop are never interleaved with another's).  A
+        collection can start inside the recorder's own lock, so the span
+        never waits for it (``span_nowait``)."""
+        rec = self.recorder
+        if phase == "start":
+            self._gc_t0 = rec.clock()
+        elif self._gc_t0 is not None:
+            t0, self._gc_t0 = self._gc_t0, None
+            rec.span_nowait("gc", t0, rec.clock() - t0,
+                            generation=info.get("generation"),
+                            collected=info.get("collected"))
 
     def dispatch_stats(self) -> dict:
         """Central-loop counter snapshot for RunReport."""
@@ -767,13 +839,18 @@ class DiffusionRuntime:
         ok = True
         acc = _InputLedger()
         rec = self.recorder
+        if rec is not None:
+            rec.enter(t.tid, w.eid)
         try:
             inputs = {oid: self._resolve(acc, w, oid, disp.hints, tid=t.tid)
                       for oid in t.inputs}
             if rec is not None:
                 rec.emit("exec_start", tid=t.tid, eid=w.eid)
             if t.fn is not None:
-                t.result = t.fn(**inputs) if _wants_kwargs(t.fn) else t.fn(inputs)
+                if rec is None:
+                    t.result = _call(t.fn, inputs)
+                else:
+                    t.result = _call_recorded(rec, t, w.eid, inputs)
             for ob in t.outputs:
                 # shape-only tasks (no fn) produce no real payload; admit the
                 # sentinel so downstream DAG reads still count as cache hits
@@ -788,6 +865,7 @@ class DiffusionRuntime:
             ok = False
             t.result = e
         if rec is not None:
+            rec.leave()
             rec.emit("exec_end", tid=t.tid, eid=w.eid, ok=ok)
         self._finish_attempt(w, t, acc, ok)
         self._pump()
@@ -797,8 +875,11 @@ class DiffusionRuntime:
         whatever object ``self.workers`` maps the executor id to -- a
         thread worker here, a remote-executor proxy on a fleet -- and the
         identity check is the membership guard for both."""
+        t_ask = time.perf_counter()
         with self._lock:
+            t_got = time.perf_counter()
             self._finish_attempt_locked(w, t, acc, ok)
+            self._count_lock_locked("finish", t_ask, t_got)
 
     def _finish_attempt_locked(self, w, t: Task, acc: _InputLedger,
                                ok: bool) -> None:
@@ -843,6 +924,32 @@ class DiffusionRuntime:
         self._stop_pacing.set()    # abort any paced submitter threads
         for w in self.workers.values():
             w.stop()
+        self._close_recording()
+
+    def _close_recording(self) -> None:
+        """A last realtime anchor, and the collector hook out."""
+        if self.recorder is not None:
+            self.recorder.anchor()
+            if self._on_gc in gc.callbacks:
+                gc.callbacks.remove(self._on_gc)
+
+
+def _call(fn: Callable[..., Any], inputs: dict) -> Any:
+    return fn(**inputs) if _wants_kwargs(fn) else fn(inputs)
+
+
+def _call_recorded(rec, t: Task, eid: str, inputs: dict) -> Any:
+    """``_call`` inside an ``fn`` span: wall and thread CPU seconds, and
+    whether it returned."""
+    t0, cpu0 = rec.clock(), time.thread_time()
+    ok = False
+    try:
+        result = _call(t.fn, inputs)
+        ok = True
+        return result
+    finally:
+        rec.span("fn", t0, rec.clock() - t0, tid=t.tid, eid=eid,
+                 cpu=time.thread_time() - cpu0, ok=ok)
 
 
 def _wants_kwargs(fn: Callable[..., Any]) -> bool:

@@ -563,6 +563,7 @@ class FleetRuntime(DiffusionRuntime):
     def shutdown(self) -> None:
         self._stop_pacing.set()
         self.manager.shutdown()
+        self._close_recording()
 
 
 #: single-process vs fleet: the RunReport fields that must agree exactly

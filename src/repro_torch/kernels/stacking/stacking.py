@@ -5,6 +5,8 @@ _stack_kernel``; the source's head note says what bounds it and how its
 design answers that.  ``stack_rois_fwd`` checks its inputs, allocates the
 output, launches on PyTorch's current stream and counts the launch.  It
 takes CUDA tensors only: the CPU's path is ``ref.py``, chosen in ``ops.py``.
+Inside a recorded request attempt (``repro_torch.obs.request``) the launch
+call is a ``launch`` span of that request.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import functools
 
 import torch
 
+from ...obs.recorder import request
 from ..build import LaunchCounter, load
 
 #: launches of the stacking kernel (``launches.value``; ``reset()`` to zero)
@@ -88,9 +91,18 @@ def stack_rois_fwd(rois: torch.Tensor, sky: torch.Tensor, cal: torch.Tensor,
     # torch.cuda.current_stream(device).cuda_stream gives, without building
     # a Stream object (chip_smoke.py's host costs time both)
     stream = torch._C._cuda_getCurrentRawStream(device)
-    err = _entry()(rois.data_ptr(), sky.data_ptr(), cal.data_ptr(),
-                   dy.data_ptr(), dx.data_ptr(), out.data_ptr(),
-                   n, h, w, int(mean), device, stream)
+    launch = _entry()
+    args = (rois.data_ptr(), sky.data_ptr(), cal.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), out.data_ptr(), n, h, w, int(mean), device, stream)
+    ctx = request()
+    if ctx is None:
+        err = launch(*args)
+    else:
+        rec, tid, eid = ctx
+        t0 = rec.clock()
+        err = launch(*args)
+        rec.span("launch", t0, rec.clock() - t0, tid=tid, eid=eid,
+                 kernel="stack_rois", parent="fn")
     if err != 0:
         raise RuntimeError(f"stack_rois kernel launch failed: CUDA error {err}")
     launches.add()

@@ -20,18 +20,26 @@ that folds per-host snapshots (fed by a multi-process fleet), a
 
 Everything here runs on the host; the event stream, the traces and the
 snapshots equal the reference's for the same run.
+
+The port's own additions: a second ring of timed spans inside a request
+(store copy, task function, kernel launch, collection pause; see
+``Recorder.span``), realtime anchors that put them on ``torch.profiler``'s
+clock, and `timeline.name_idle_gaps`, which names each idle gap of the card
+by the host spans open across it.
 """
 from .events import (
     EVENT_SCHEMA_VERSION,
     EVENT_KINDS,
     LIFECYCLE_KINDS,
     OUTCOME_FIELDS,
+    SPAN_KINDS,
     exec_index,
     lifecycle_fingerprints,
     outcome_record,
 )
-from .recorder import Recorder, load_events
+from .recorder import Recorder, load_events, request
 from .export import chrome_trace
+from .timeline import name_idle_gaps
 from .diff import (diff_outcomes, format_divergence, sim_replay_outcomes,
                    sim_twin_spec)
 from .metrics import (METRICS_SCHEMA_VERSION, ClusterView, MetricsRegistry,
@@ -45,6 +53,7 @@ __all__ = [
     "LIFECYCLE_KINDS",
     "METRICS_SCHEMA_VERSION",
     "OUTCOME_FIELDS",
+    "SPAN_KINDS",
     "ClusterView",
     "HealthMonitor",
     "MetricsRegistry",
@@ -59,9 +68,11 @@ __all__ = [
     "lifecycle_fingerprints",
     "load_events",
     "merge_snapshots",
+    "name_idle_gaps",
     "outcome_record",
     "quantile",
     "read_metrics",
+    "request",
     "sim_replay_outcomes",
     "sim_twin_spec",
 ]

@@ -15,7 +15,9 @@ normalizes executor naming (sim ``e3`` vs runtime ``w3``).
 A copy of the reference's ``repro.obs.events``: the same schema version,
 kinds and outcome fields, so event sinks and v3 traces read across the two
 packages.  The lease/claim kinds stay in the schema; only a multi-process
-fleet emits them.
+fleet emits them.  ``SPAN_KINDS`` are the port's own: timed spans inside a
+request, kept in a ring of their own (``Recorder.span``), never in the
+lifecycle stream or its sink.
 """
 from __future__ import annotations
 
@@ -52,6 +54,15 @@ LIFECYCLE_KINDS = (
     INPUT, EXEC_START, EXEC_END, TASK_DONE, TASK_FAILED, TASK_REQUEUED,
 )
 EVENT_KINDS = frozenset(LIFECYCLE_KINDS) | {PUMP, POOL, PROVISION}
+
+# -- span kinds (the port's own; Recorder.span) -----------------------------
+# ``store_copy``: a store read's host-to-device copy; ``fn``: the task
+# function, wall and thread CPU; ``launch``: a kernel launch call, launch to
+# return; ``gc``: one pause of the interpreter's collector.  Each span has a
+# start ``t`` and a duration ``dur`` on the recorder's clock; ``parent``
+# names what caused it: a span kind, or ``stage``, the staging of a
+# request's inputs (dispatch -> exec_start in the lifecycle stream)
+SPAN_KINDS = frozenset({"store_copy", "fn", "launch", "gc"})
 
 # Input sources (the ``source`` field of INPUT events).
 SOURCE_LOCAL = "local"

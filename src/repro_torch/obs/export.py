@@ -15,6 +15,15 @@ sampled counter tracks from the live plane: ``sampled_queue_depth``,
 on fleets, a single ``sampled_cache_bytes`` track otherwise).  Samples and
 events share one rebased timebase, so the sampled curves overlay the
 per-task spans.
+
+The port adds two optional inputs.  ``spans``, a recorder's span ring
+(``Recorder.spans``), lays each store copy, task function and kernel launch
+on its executor's track and each collection pause on a ``host`` track.
+``device_ops``, the card's operations as realtime ``(start_ns, end_ns,
+name)`` triples (``obs.timeline``), need ``to_epoch_ns`` (the recorder's):
+then every timestamp goes through it onto the realtime clock, and the card
+gets a process of its own.  Without them the trace is the reference's, byte
+for byte.
 """
 from __future__ import annotations
 
@@ -36,24 +45,39 @@ from .events import (
 
 _PID = 0
 _COUNTER_TID = 0  # counter tracks render per-process; tid is cosmetic
+_DEVICE_PID = 1   # the card's operations (device_ops)
 
 
-def chrome_trace(events, path=None, samples=None):
+def chrome_trace(events, path=None, samples=None, spans=None,
+                 device_ops=None, to_epoch_ns=None):
     """Build a Chrome-trace dict from an event stream (plus optional
-    telemetry ``samples``); optionally write it to ``path``.  Returns the
-    trace dict (``{"traceEvents": [...]}``)."""
+    telemetry ``samples``, span ring ``spans`` and card operations
+    ``device_ops`` with the recorder's ``to_epoch_ns``); optionally write it
+    to ``path``.  Returns the trace dict (``{"traceEvents": [...]}``)."""
     events = sorted(events, key=lambda e: e.get("t", 0.0))
     samples = sorted(samples or [], key=lambda s: s.get("t", 0.0))
+    spans = sorted(spans or [], key=lambda s: s["t"])
+    device_ops = sorted(device_ops or [])
+    if device_ops and to_epoch_ns is None:
+        raise ValueError("device_ops need the recorder's to_epoch_ns")
     starts = ([events[0]["t"]] if events else []) \
-        + ([samples[0]["t"]] if samples else [])
+        + ([samples[0]["t"]] if samples else []) \
+        + ([spans[0]["t"]] if spans else [])
     t0 = min(starts) if starts else 0.0
 
-    def us(t):
-        return round((t - t0) * 1e6, 3)
+    if device_ops:
+        e0 = min(([to_epoch_ns(t0)] if starts else []) + [device_ops[0][0]])
+
+        def us(t):
+            return round((to_epoch_ns(t) - e0) / 1e3, 3)
+    else:
+        def us(t):
+            return round((t - t0) * 1e6, 3)
 
     trace = []
     # Executor tracks, ordered by normalized index.
-    eids = sorted({e["eid"] for e in events if e.get("eid") is not None},
+    eids = sorted({e["eid"] for e in events if e.get("eid") is not None}
+                  | {s["eid"] for s in spans if s.get("eid") is not None},
                   key=lambda x: (isinstance(exec_index(x), str),
                                  exec_index(x)))
     tid_of = {eid: i + 1 for i, eid in enumerate(eids)}
@@ -143,6 +167,28 @@ def chrome_trace(events, path=None, samples=None):
             trace.append({"ph": "C", "pid": _PID, "tid": _COUNTER_TID,
                           "name": "sampled_cache_bytes", "ts": ts,
                           "args": {"bytes": g.get("cache.bytes", 0)}})
+
+    if spans:
+        host_track = queue_track + 1
+        trace.append({"ph": "M", "pid": _PID, "tid": host_track,
+                      "name": "thread_name", "args": {"name": "host"}})
+        for s in spans:
+            track = tid_of.get(s.get("eid"), host_track)
+            trace.append({
+                "ph": "X", "pid": _PID, "tid": track, "name": s["kind"],
+                "cat": "span", "ts": us(s["t"]),
+                "dur": max(us(s["t"] + s["dur"]) - us(s["t"]), 0.0),
+                "args": {k: v for k, v in s.items()
+                         if k not in ("t", "dur", "kind")},
+            })
+    if device_ops:
+        trace.append({"ph": "M", "pid": _DEVICE_PID, "tid": 0,
+                      "name": "process_name", "args": {"name": "device"}})
+        for start, end, name in device_ops:
+            trace.append({"ph": "X", "pid": _DEVICE_PID, "tid": 0,
+                          "name": name, "cat": "device",
+                          "ts": round((start - e0) / 1e3, 3),
+                          "dur": max(round((end - start) / 1e3, 3), 0.0)})
 
     out = {"traceEvents": trace, "displayTimeUnit": "ms"}
     if path is not None:

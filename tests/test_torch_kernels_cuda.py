@@ -1217,3 +1217,39 @@ def test_mamba_block_under_autograd_launches_the_kernel(cuda):
     arrs["u"].requires_grad_()
     with pytest.raises(RuntimeError, match="u require grad"):
         ms_ops.mamba_scan(**arrs)
+
+
+def test_a_kernel_launched_in_a_span_starts_after_it_on_the_shared_clock(
+        cuda):
+    """The recorder's realtime anchors put its spans on torch.profiler's
+    clock: a kernel launched inside a span starts on the card after the
+    span's start and within 5 ms of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import Recorder
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):   # the first session
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    rec = Recorder()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda.synchronize()
+            rec.anchor()
+            t0 = rec.clock()
+            torch.cuda._sleep(20_000)
+            rec.span("launch", t0, rec.clock() - t0, kernel="sleep")
+        torch.cuda.synchronize()
+    rec.anchor()
+    kernels = sorted(
+        e.start_ns() for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and not e.is_user_annotation()
+        and not e.name().startswith(("Memcpy", "Memset")))
+    launches = [rec.to_epoch_ns(s["t"]) for s in rec.spans()]
+    assert len(kernels) == len(launches) == 8
+    delays = [k - t for k, t in zip(kernels, launches)]
+    print("launch span start to kernel start (ns):", delays)
+    assert all(0 < d < 5_000_000 for d in delays), delays
