@@ -178,6 +178,7 @@ class DispatchStats:
 
     pump_calls: int = 0
     dispatches: int = 0
+    decision_steps: int = 0        # the dispatcher's, at dispatch_stats()
     updates_applied: int = 0
     lock_hold_s: float = 0.0
     lock_wait_s: float = 0.0
@@ -195,6 +196,7 @@ class DispatchStats:
         return {
             "pump_calls": self.pump_calls,
             "dispatches": self.dispatches,
+            "decision_steps": self.decision_steps,
             "updates_applied": self.updates_applied,
             "lock_hold_s": self.lock_hold_s,
             "lock_wait_s": self.lock_wait_s,
@@ -789,7 +791,12 @@ class DiffusionRuntime:
     def dispatch_stats(self) -> dict:
         """Central-loop counter snapshot for RunReport."""
         with self._lock:
-            return self.stats.as_dict()
+            return self._stats_dict_locked()
+
+    def _stats_dict_locked(self) -> dict:
+        # the dispatcher's counter is read here, not copied on every pump
+        self.stats.decision_steps = self.dispatcher.decision_steps
+        return self.stats.as_dict()
 
     def sample_metrics(self) -> None:
         """Refresh the registry's gauges from live runtime state (the

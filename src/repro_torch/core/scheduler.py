@@ -21,8 +21,12 @@ and then kept coherent by the ``apply_index_updates`` / ``drop_executor``
 hooks; an inverted ``executor -> {queued tid: cached-byte score}`` map makes
 "which queued task does this freed executor cache the most of" an O(|tasks
 that executor caches data for|) probe instead of an O(window x inputs)
-index rescan; and the wait queue supports O(1) removal by tid via tombstones
-instead of ``deque.remove``'s O(n) scan.
+index rescan; and the wait queue is an insertion-ordered map, so removal by
+tid is O(1) and leaves nothing behind for later scans to walk.  A placement
+round scores each free executor from the smaller side: the window's tasks
+looked up in its score map, or its score map filtered by the window, so a
+round costs O(window x free executors) however many tasks were dispatched
+before it or however many queued tasks an executor's cache matches.
 
 Multi-input (join) scoring (DESIGN.md §6): a task may read k inputs and an
 executor may cache any subset of them, so a score is *bytes of this task's
@@ -45,8 +49,9 @@ written.  Dep-free tasks take the exact pre-DAG code path bit-identically.
 """
 from __future__ import annotations
 
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
+from itertools import islice
 from typing import Iterable, Iterator, Optional
 
 from .index import IndexUpdate, LocationIndex
@@ -54,98 +59,75 @@ from .objects import Task, TaskState
 from .policies import Decision, DispatchPolicy, decide
 
 
-class _QEntry:
-    __slots__ = ("task", "pos", "alive")
-
-    def __init__(self, task: Task, pos: int) -> None:
-        self.task = task
-        self.pos = pos
-        self.alive = True
-
-
 class TaskQueue:
     """FIFO wait queue with O(1) removal-by-tid.
 
-    Removal marks the entry dead (a tombstone) instead of scanning the deque;
-    dead entries are skipped on pop/iteration and compacted away once they
-    outnumber live ones.  ``pos`` is a stable total order (appendleft counts
-    down, append counts up) used for "earliest in queue" tie-breaks without
-    walking the deque.
+    An insertion-ordered map from tid to task: ``appendleft`` moves the new
+    entry to the front, and removal deletes it, so no removed entry is ever
+    walked again.  ``pos`` is a stable total order (appendleft counts down,
+    append counts up) used for "earliest in queue" tie-breaks without
+    walking the queue; queue order is ascending ``pos``.
     """
 
     def __init__(self) -> None:
-        self._dq: deque[_QEntry] = deque()
-        self._by_tid: dict[str, _QEntry] = {}
-        self._dead = 0
+        self._q: OrderedDict[str, Task] = OrderedDict()
+        self._pos: dict[str, int] = {}
         self._front = 0   # next appendleft pos (counts down)
         self._back = 1    # next append pos (counts up)
 
     def append(self, t: Task) -> None:
-        self._discard(t.tid)
-        e = _QEntry(t, self._back)
+        tid = t.tid
+        self._q.pop(tid, None)
+        self._q[tid] = t
+        self._pos[tid] = self._back
         self._back += 1
-        self._dq.append(e)
-        self._by_tid[t.tid] = e
 
     def appendleft(self, t: Task) -> None:
-        self._discard(t.tid)
-        e = _QEntry(t, self._front)
+        tid = t.tid
+        self._q.pop(tid, None)
+        self._q[tid] = t
+        self._q.move_to_end(tid, last=False)
+        self._pos[tid] = self._front
         self._front -= 1
-        self._dq.appendleft(e)
-        self._by_tid[t.tid] = e
 
     def popleft(self) -> Task:
-        while self._dq:
-            e = self._dq.popleft()
-            if e.alive:
-                del self._by_tid[e.task.tid]
-                return e.task
-            self._dead -= 1
-        raise IndexError("pop from empty TaskQueue")
+        if not self._q:
+            raise IndexError("pop from empty TaskQueue")
+        tid, t = self._q.popitem(last=False)
+        del self._pos[tid]
+        return t
 
     def remove(self, tid: str) -> bool:
-        """Tombstone the entry for ``tid``; O(1) amortized."""
-        if self._discard(tid):
-            if self._dead > 64 and self._dead > len(self._by_tid):
-                self._compact()
-            return True
-        return False
-
-    def _discard(self, tid: str) -> bool:
-        e = self._by_tid.pop(tid, None)
-        if e is None:
+        """Delete the entry for ``tid``; O(1)."""
+        if self._q.pop(tid, None) is None:
             return False
-        e.alive = False
-        self._dead += 1
+        del self._pos[tid]
         return True
 
-    def _compact(self) -> None:
-        self._dq = deque(e for e in self._dq if e.alive)
-        self._dead = 0
-
     def position(self, tid: str) -> int:
-        return self._by_tid[tid].pos
+        return self._pos[tid]
 
     def first_live(self, n: int) -> list[Task]:
-        out: list[Task] = []
-        for e in self._dq:
-            if e.alive:
-                out.append(e.task)
-                if len(out) >= n:
-                    break
-        return out
+        """The first ``n`` queued tasks (at least one while any is queued,
+        whatever ``n``).  The port's dispatcher reads ``first_tids``; this
+        call is kept for parity with the reference's ``TaskQueue``."""
+        return list(islice(self._q.values(), max(n, 1)))
+
+    def first_tids(self, n: int) -> list[str]:
+        """The tids of the first ``n`` queued tasks, in queue order."""
+        return list(islice(self._q, n))
 
     def __contains__(self, tid: str) -> bool:
-        return tid in self._by_tid
+        return tid in self._q
 
     def __iter__(self) -> Iterator[Task]:
-        return (e.task for e in list(self._dq) if e.alive)
+        return iter(list(self._q.values()))
 
     def __len__(self) -> int:
-        return len(self._by_tid)
+        return len(self._q)
 
     def __bool__(self) -> bool:
-        return bool(self._by_tid)
+        return bool(self._q)
 
 
 @dataclass(slots=True)
@@ -197,6 +179,8 @@ class Dispatcher:
         self._twin_of: dict[str, str] = {}        # original tid -> twin tid
         self.n_decisions = 0
         self.decision_lookups = 0
+        # queue and score-map entries max-compute-util placement examined
+        self.decision_steps = 0
         # optional repro_torch.obs.Recorder: the owning engine installs it;
         # every emission below is None-guarded so recording-off costs one
         # attribute load per lifecycle transition (never per queue scan).
@@ -601,28 +585,45 @@ class Dispatcher:
     def _dispatch_mcu(self, now: float) -> list[Dispatch]:
         """max-compute-util: for each available executor, pick the queued
         task (within the window) whose inputs it caches the most bytes of --
-        read straight off the inverted score map -- falling back to the
-        queue head when nothing matches.  Byte ties prefer the higher
-        overlap fraction (= smaller input total for equal cached bytes),
-        then the earlier queue position."""
+        read off the inverted score map from its smaller side -- falling
+        back to the earliest unclaimed window task when nothing matches.
+        Byte ties prefer the higher overlap fraction (= smaller input total
+        for equal cached bytes), then the earlier queue position.  The pick
+        is the maximum of that total order, so the side it is read from
+        cannot change it."""
         out: list[Dispatch] = []
+        executors = self.executors
+        avail = self._exec_order
         while self.queue:
-            avail, _ = self._avail_busy()
+            # nothing frees an executor in here: each round's free executors
+            # are among the last round's
+            avail = [e for e in avail if executors[e].available]
             if not avail:
                 break
-            window = self.queue.first_live(self.queue_window)
-            if not window:
-                break
-            window_tids = {t.tid for t in window}
+            window = self.queue.first_tids(self.queue_window)
+            window_tids: Optional[set[str]] = None   # built on first need
+            n_window = len(window)
             self.n_decisions += 1
+            steps = n_window
+            head = 0                    # window[:head] is all taken
             bound_any = False
             taken: set[str] = set()
             for eid in avail:
+                scores = self._exec_scores.get(eid, {})
+                if len(scores) > n_window:
+                    steps += n_window
+                    cands = [(tid, scores[tid]) for tid in window
+                             if tid in scores]
+                else:
+                    steps += len(scores)
+                    if window_tids is None:
+                        window_tids = set(window)
+                    cands = [(tid, score) for tid, score in scores.items()
+                             if tid in window_tids]
                 best_tid: Optional[str] = None
                 best_score, best_pos, best_total = 0, 0, -1
-                for tid, score in self._exec_scores.get(eid, {}).items():
-                    if score < best_score or tid in taken \
-                            or tid not in window_tids:
+                for tid, score in cands:
+                    if score < best_score or tid in taken:
                         continue
                     if score > best_score:
                         best_tid, best_score = tid, score
@@ -641,16 +642,18 @@ class Dispatcher:
                         best_tid, best_pos, best_total = tid, pos, total
                 if best_tid is None:
                     # nothing cached for this executor: take earliest unclaimed
-                    t = next((w for w in window if w.tid not in taken), None)
-                    if t is None:
+                    while head < n_window and window[head] in taken:
+                        head += 1
+                    if head == n_window:
                         break
-                else:
-                    t = self.tasks[best_tid]
+                    best_tid = window[head]
+                t = self.tasks[best_tid]
                 taken.add(t.tid)
                 self.queue.remove(t.tid)
                 t.location_hints = self._hints_tuple(self._hints_drop(t))
                 out.append(self._bind(t, eid, now))
                 bound_any = True
+            self.decision_steps += steps + head
             if not bound_any:
                 break
         return out

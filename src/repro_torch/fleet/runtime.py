@@ -551,7 +551,7 @@ class FleetRuntime(DiffusionRuntime):
         Lock order runtime._lock -> manager._lock is safe; the manager
         never calls back into the runtime while holding its own lock."""
         with self._lock:
-            d = self.stats.as_dict()
+            d = self._stats_dict_locked()
             for h in self.manager.live_handles():
                 d["frames_sent"] += h.frames_sent
                 d["msgs_sent"] += h.msgs_sent

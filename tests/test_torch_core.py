@@ -4,6 +4,8 @@ sequence and hints (exactly), the same workload events, and -- in the
 runtime's deterministic regime -- the same per-task placement, input split
 and byte ledger."""
 import random
+from collections import OrderedDict, deque
+from itertools import count
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from repro.core.index import IndexUpdate as JaxIndexUpdate
 from repro.core.policies import DispatchPolicy as JaxPolicy
 from repro.core.runtime import DiffusionRuntime as JaxRuntime
 from repro.core.scheduler import Dispatcher as JaxDispatcher
+from repro.core.scheduler import TaskQueue as JaxTaskQueue
 from repro.experiments import WorkloadSpec as JaxWorkloadSpec
 from repro.experiments import build_workload as jax_build_workload
 from repro.kernels.stacking import ops as jax_st_ops
@@ -22,6 +25,7 @@ from repro_torch.core.index import IndexUpdate as PtIndexUpdate
 from repro_torch.core.policies import DispatchPolicy as PtPolicy
 from repro_torch.core.runtime import DiffusionRuntime as PtRuntime
 from repro_torch.core.scheduler import Dispatcher as PtDispatcher
+from repro_torch.core.scheduler import TaskQueue as PtTaskQueue
 from repro_torch.experiments import WorkloadSpec as PtWorkloadSpec
 from repro_torch.experiments import build_workload as pt_build_workload
 from repro_torch.kernels.stacking import ops as pt_st_ops
@@ -96,6 +100,219 @@ def test_dispatcher_parity(policy, seed):
                       PtIndexUpdate, policy, seed)
     assert pt_trace == jax_trace
     assert len(jax_trace[-2]) == 60          # every task completed
+
+
+def _lru_update(caches, eid, oid, cap):
+    """Touch ``oid`` in ``eid``'s LRU cache of ``cap`` files; returns the
+    IndexUpdate fields (added, removed)."""
+    c = caches[eid]
+    if oid in c:
+        c.move_to_end(oid)
+        return (), ()
+    c[oid] = None
+    return (oid,), ((c.popitem(last=False)[0],) if len(c) > cap else ())
+
+
+def _drive_at_scale(pkg, policy: str, seed: int):
+    """A locality-10 trace of 2,000 single-file tasks (files of 3, 6 or 12
+    MB) queued at once over 64 executors with LRU caches that evict.  Half
+    the caches start warm, so max-compute-util's score maps outgrow the
+    256-task window before the queue drains below it, and half cold, so the
+    first round falls back to the window's earliest unclaimed tasks.  One
+    executor finishes at a time; attempt 500 fails and goes back to the
+    front of the queue; attempt 700 gets a speculative twin that its
+    original's completion cancels while still queued."""
+    Dispatcher, Policy, Task, IndexUpdate, DataObject = pkg
+    rng = random.Random(seed)
+    files = [f"f{i}" for i in range(200)]
+    order = [f for f in files for _ in range(10)]
+    rng.shuffle(order)
+    d = Dispatcher(Policy(policy))
+    clock = count()
+    caches = {}
+    for i in range(64):
+        eid = f"e{i}"
+        d.executor_joined(eid, float(next(clock)))
+        caches[eid] = OrderedDict.fromkeys(rng.sample(files, 30 * (i % 2)))
+    d.register_objects([DataObject(f, rng.choice([3, 6, 6, 12]) * 10**6)
+                        for f in files])
+    d.apply_index_updates([IndexUpdate(e, added=tuple(c), removed=())
+                           for e, c in caches.items()])
+    d.submit([Task(inputs=(f,), tid=f"t{i}") for i, f in enumerate(order)],
+             float(next(clock)))
+    trace, running = [], deque()
+
+    def pump():
+        out = d.next_dispatches(float(next(clock)))
+        trace.extend((x.task.tid, x.executor, tuple(sorted(x.hints.items())))
+                     for x in out)
+        running.extend(out)
+
+    pump()
+    for n in count(1):
+        if not running:
+            break
+        x = running.popleft()
+        if n == 500:
+            assert d.task_finished(x.task, float(next(clock)), ok=False) \
+                is None
+            assert d.queue.first_live(1)[0] is x.task
+            pump()
+            continue
+        twin = d.make_twin(x.task, float(next(clock))) if n == 700 else None
+        added, removed = _lru_update(caches, x.executor, x.task.inputs[0], 32)
+        d.apply_index_updates([IndexUpdate(x.executor, added=added,
+                                           removed=removed)])
+        cancel = d.task_finished(x.task, float(next(clock)), ok=True)
+        if twin is not None:
+            assert cancel == twin.tid and twin.tid not in d.queue
+        pump()
+    trace.append(sorted(t.tid for t in d.completed))
+    trace.append(d.scores_match_reference())
+    return trace
+
+
+JAX_PKG = (JaxDispatcher, JaxPolicy, jax_objects.Task, JaxIndexUpdate,
+           jax_objects.DataObject)
+PT_PKG = (PtDispatcher, PtPolicy, pt_objects.Task, PtIndexUpdate,
+          pt_objects.DataObject)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_dispatcher_parity_at_scale(policy):
+    jax_trace = _drive_at_scale(JAX_PKG, policy, seed=3)
+    pt_trace = _drive_at_scale(PT_PKG, policy, seed=3)
+    assert len(jax_trace[-2]) == 2_000       # every task completed once
+    assert len(pt_trace) == len(jax_trace) == 2_001 + 2
+    assert pt_trace == jax_trace
+
+
+def _first_pick(pkg, n_far: int):
+    """The first max-compute-util pick of an executor that caches the file
+    of the window's last task (t255), the larger file of the first task past
+    the window (t256), and ``n_far`` tasks' file further back."""
+    Dispatcher, Policy, Task, IndexUpdate, DataObject = pkg
+    d = Dispatcher(Policy("max-compute-util"))
+    d.executor_joined("e0", 0.0)
+    files = {255: "edge", 256: "big", **{i: "far" for i in range(300, 300
+                                                                   + n_far)}}
+    d.register_objects([DataObject("edge", 6_000_000),
+                        DataObject("big", 12_000_000),
+                        DataObject("far", 6_000_000)]
+                       + [DataObject(f"u{i}", 6_000_000) for i in range(600)])
+    d.apply_index_updates([IndexUpdate("e0", added=("edge", "big", "far"),
+                                       removed=())])
+    d.submit([Task(inputs=(files.get(i, f"u{i}"),), tid=f"t{i}")
+              for i in range(600)], 1.0)
+    assert len(d._exec_scores["e0"]) == 2 + n_far
+    return [x.task.tid for x in d.next_dispatches(2.0)]
+
+
+@pytest.mark.parametrize("n_far", [0, 300])
+def test_mcu_pick_at_window_edge(n_far):
+    """Read from the window's side (a score map of 302 entries) or from the
+    map's (2 entries), the pick is the window's last task, not the higher
+    score just past the window, as in the reference."""
+    assert PtDispatcher.queue_window == JaxDispatcher.queue_window == 256
+    got = _first_pick(PT_PKG, n_far)
+    assert got == ["t255"] == _first_pick(JAX_PKG, n_far)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_taskqueue_matches_reference(seed):
+    """Random operation sequences: the port's queue answers every call as
+    the reference's does (re-appends of queued tids, removals past the
+    reference's compaction point, pops of an empty queue included)."""
+    rng = random.Random(seed)
+    tids = [f"q{i}" for i in range(48)]
+    jt = {tid: jax_objects.Task(inputs=("o",), tid=tid) for tid in tids}
+    pt = {tid: pt_objects.Task(inputs=("o",), tid=tid) for tid in tids}
+    jq, pq = JaxTaskQueue(), PtTaskQueue()
+
+    def same(f):
+        try:
+            want = ("ok", f(jq, jt))
+        except (IndexError, KeyError) as e:
+            want = ("raise", type(e))
+        try:
+            got = ("ok", f(pq, pt))
+        except (IndexError, KeyError) as e:
+            got = ("raise", type(e))
+        assert got == want
+
+    ops = [
+        (6, lambda tid, n: lambda q, ts: q.append(ts[tid])),
+        (3, lambda tid, n: lambda q, ts: q.appendleft(ts[tid])),
+        (4, lambda tid, n: lambda q, ts: q.remove(tid)),
+        (2, lambda tid, n: lambda q, ts: q.popleft().tid),
+        (2, lambda tid, n: lambda q, ts: [t.tid for t in q.first_live(n)]),
+        (2, lambda tid, n: lambda q, ts: q.position(tid)),
+        (2, lambda tid, n: lambda q, ts: tid in q),
+        (1, lambda tid, n: lambda q, ts: [t.tid for t in q]),
+    ]
+    weights = [w for w, _ in ops]
+    for _ in range(4_000):
+        (_, make), = rng.choices(ops, weights)
+        same(make(rng.choice(tids), rng.randint(-1, 60)))
+        same(lambda q, ts: (len(q), bool(q)))
+    same(lambda q, ts: [(t.tid, q.position(t.tid)) for t in q])
+
+
+def test_mcu_placement_cost_does_not_grow():
+    """20,000 max-compute-util dispatches of a locality-10 trace queued at
+    once, one executor finishing at a time, 64 executors with LRU caches of
+    178 files: the queue and score entries placement examines per dispatch
+    stay within the window's bound and do not grow as dispatches pile up."""
+    rng = random.Random(0)
+    order = [f"f{i}" for i in range(2_400) for _ in range(10)]
+    rng.shuffle(order)
+    d = PtDispatcher(PtPolicy.MAX_COMPUTE_UTIL)
+    caches = {}
+    for i in range(64):
+        d.executor_joined(f"e{i}", 0.0)
+        caches[f"e{i}"] = OrderedDict()
+    d.register_objects([pt_objects.DataObject(f"f{i}", 6_000_000)
+                        for i in range(2_400)])
+    d.submit([pt_objects.Task(inputs=(f,), tid=f"t{i}")
+              for i, f in enumerate(order)], 0.0)
+    bound = 2 * d.queue_window + len(d.executors)
+    running = deque(d.next_dispatches(0.0))
+    per_dispatch = [d.decision_steps / len(running)] * len(running)
+    now = 0.0
+    while len(per_dispatch) < 20_000:
+        x = running.popleft()
+        now += 1.0
+        added, removed = _lru_update(caches, x.executor, x.task.inputs[0],
+                                     178)
+        d.apply_index_updates([PtIndexUpdate(x.executor, added=added,
+                                             removed=removed)])
+        d.task_finished(x.task, now)
+        before = d.decision_steps
+        out = d.next_dispatches(now)
+        assert out and len(d.queue) > d.queue_window
+        steps = (d.decision_steps - before) / len(out)
+        assert steps <= bound
+        per_dispatch.extend([steps] * len(out))
+        running.extend(out)
+    first = sum(per_dispatch[:4_000]) / 4_000
+    last = sum(per_dispatch[-4_000:]) / 4_000
+    assert 0 < last <= 1.25 * first
+    assert max(first, last) <= bound
+    assert d.scores_match_reference()
+
+
+def test_decision_steps_in_dispatch_stats():
+    rt = PtRuntime(n_executors=2, policy=PtPolicy.MAX_COMPUTE_UTIL,
+                   device="cpu")
+    try:
+        rt.put_object(pt_objects.DataObject("a", 4), np.zeros(4, np.uint8))
+        rt.submit([pt_objects.Task(inputs=("a",), fn=lambda inputs: 0)
+                   for _ in range(6)])
+        assert rt.wait(30)
+        st = rt.dispatch_stats()
+        assert st["decision_steps"] == rt.dispatcher.decision_steps > 0
+    finally:
+        rt.shutdown()
 
 
 # --------------------------------------------------------------------------
