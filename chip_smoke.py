@@ -576,6 +576,16 @@ def stacking_bound(n: int, h: int, w: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def coadd_bound(n: int, h: int, w: int) -> float:
+    """Least time (ms) the card could take for one one-call coadd: the prep
+    kernel and the stacking kernel each read the (N, H, W) tiles once, the
+    prep kernel writes 4N scalars that the stacking kernel reads, and the
+    output is written once, over HBM bandwidth (the operations, ~11 a
+    pixel, take a tenth of that)."""
+    return (2 * 4 * n * h * w + 2 * 16 * n + 4 * h * w) / HBM_BYTES_PER_S \
+        * 1e3
+
+
 def flash_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     """Valid (query, key) pairs of one head under the masks."""
     q = np.arange(sq, dtype=np.int64)
@@ -738,7 +748,68 @@ def phase_kernels() -> dict:
     log("[kernel] stack_rois: no single PyTorch call computes this function "
         "(calibrate + bilinear shift + coadd), so there is no library "
         "yardstick (library_ms null)")
-    return {"stack_rois": rows}
+    return {"stack_rois": rows, "coadd": _coadd_rows(dev)}
+
+
+def _coadd_rows(dev) -> list[dict]:
+    """The app's one-call coadd (``stacking.coadd_fwd``: the prep kernel,
+    then the stacking kernel) at the main path's shapes: the CLI's flat
+    file (8 tiles), the pipeline's stack (32) and the benchmark's file
+    (150).  Each is held to the plain version of the app's coadd and timed
+    beside it, beside the stacking kernel alone on the same scalars (the
+    prep kernel's share is the difference) and against ``coadd_bound``;
+    eager, against the former path (``coadd_params`` + the stacking op)."""
+    from repro_torch.apps import astro
+    from repro_torch.kernels.stacking import ops as st_ops
+    from repro_torch.kernels.stacking.ref import stack_rois_ref
+    from repro_torch.kernels.stacking.stacking import (coadd_fwd,
+                                                       stack_rois_fwd)
+
+    rows = []
+    for j, (n, h, w) in enumerate([(8, 100, 100), (32, 100, 100),
+                                   (150, 100, 100)]):
+        ids = [200 + j]
+        tiles = _stacking_inputs(n, h, w, 200 + j, dev)[0]
+        shifts = astro.draw_shifts(ids, n)
+        params = astro.coadd_params(tiles, ids)
+        got = coadd_fwd(tiles, shifts, astro.SKY_FRACTION)
+        want = stack_rois_ref(tiles, *params) / n
+        torch.cuda.synchronize()
+        label = f"coadd N={n} {h}x{w}"
+        max_abs, max_rel = check_close(label, got, want)
+        ones = torch.ones(n, device=dev)
+        dy, dx = torch.from_numpy(shifts).to(dev)
+
+        def one_call():
+            return coadd_fwd(tiles, shifts, astro.SKY_FRACTION)
+
+        def plain():
+            sky = tiles.mean(dim=(1, 2)) * astro.SKY_FRACTION
+            return stack_rois_ref(tiles, sky, ones, dy, dx) / n
+
+        def stack_alone():
+            return stack_rois_fwd(tiles, *params)
+
+        def former():
+            return st_ops.stack_rois(tiles, *astro.coadd_params(tiles, ids))
+
+        k_ms, p_ms, s_ms = (device_ms(one_call), device_ms(plain),
+                            device_ms(stack_alone))
+        k_host, f_host = host_ms(one_call), host_ms(former)
+        bound_ms = coadd_bound(n, h, w)
+        rows.append({"case": label, "shape": [n, h, w],
+                     "max_abs_err": max_abs, "max_rel_err": max_rel,
+                     "ms": k_ms, "plain_ms": p_ms, "stack_alone_ms": s_ms,
+                     "prep_ms": k_ms - s_ms, "host_ms": k_host,
+                     "former_host_ms": f_host, "bound_ms": bound_ms,
+                     "bound_by": "bytes"})
+        log(f"[kernel] one-call {label}: max abs err {max_abs:.3g} max rel "
+            f"err {max_rel:.3g} | device: prep + stack {k_ms * 1e3:.3f} us "
+            f"(stack alone {s_ms * 1e3:.3f} us, so prep "
+            f"{(k_ms - s_ms) * 1e3:.3f} us), plain {p_ms * 1e3:.3f} us, "
+            f"bound {bound_ms * 1e3:.3f} us (bytes) | eager per call: one "
+            f"call {k_host * 1e3:.2f} us, former path {f_host * 1e3:.2f} us")
+    return rows
 
 
 def _host_us(calls: dict, n: int = 2000) -> dict:
@@ -1142,7 +1213,7 @@ def phase_flat() -> dict:
     from repro_torch.apps import astro
     from repro_torch.configs.astro_stacking import workload
     from repro_torch.experiments import RuntimeEngine
-    from repro_torch.kernels.stacking.stacking import launches
+    from repro_torch.kernels.stacking.stacking import coadd_calls, launches
 
     spec = astro.flat_spec(FLAT_TASKS, FLAT_LOCALITY, FLAT_HOSTS)
     n_files = spec.workload.n_objects
@@ -1160,10 +1231,12 @@ def phase_flat() -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         launches.reset()
+        coadd_calls.reset()
         rep = eng.run(task_fn=astro.stack_object, time_scale=0.0,
                       timeout=900.0)
         torch.cuda.synchronize()
         n_launch = launches.value
+        n_one_call = coadd_calls.value
         peak = torch.cuda.max_memory_allocated()
         ideal = workload(FLAT_LOCALITY).ideal_cache_hit_ratio
         b = rep.bytes_by_kind
@@ -1177,12 +1250,13 @@ def phase_flat() -> dict:
         log(f"[flat] bytes: store {b['store_read'] / 1e9:.4f} GB, local "
             f"{b['local'] / 1e9:.4f} GB, cache-to-cache {b['c2c'] / 1e9:.4f} "
             f"GB | peak device memory {peak / 2**30:.3f} GiB")
-        log(f"[flat] stack_rois launches {n_launch} (completed tasks "
-            f"{rep.n_completed})")
+        log(f"[flat] stack_rois launches {n_launch}, one-call coadds "
+            f"{n_one_call} (completed tasks {rep.n_completed})")
         if rep.n_completed != FLAT_TASKS or rep.n_failed:
             raise AssertionError("flat run did not complete every task")
-        if n_launch != rep.n_completed:
-            raise AssertionError(f"flat: {n_launch} kernel launches for "
+        if n_launch != rep.n_completed or n_one_call != rep.n_completed:
+            raise AssertionError(f"flat: {n_launch} kernel launches and "
+                                 f"{n_one_call} one-call coadds for "
                                  f"{rep.n_completed} tasks")
         if rep.cache_hit_ratio < 0.9 * ideal:
             raise AssertionError(f"flat: hit ratio {rep.cache_hit_ratio} is "
@@ -1204,6 +1278,7 @@ def phase_flat() -> dict:
                 "local_hits": rep.local_hits, "peer_hits": rep.peer_hits,
                 "store_reads": rep.store_reads, "bytes_by_kind": b,
                 "peak_memory_bytes": peak, "launches": n_launch,
+                "one_call_coadds": n_one_call,
                 "checked_max_abs_err": worst}
     finally:
         eng.shutdown()
@@ -5262,6 +5337,11 @@ def main(argv=None) -> int:
         "pipeline_stack": {k: stack_row[k] for k in (
             "shape", "max_abs_err", "ms", "host_ms", "bound_ms",
             "bound_by")},
+        "launches_one_call": flat["one_call_coadds"],
+        "one_call_coadd": [{k: r[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "stack_alone_ms",
+            "prep_ms", "host_ms", "former_host_ms", "bound_ms", "bound_by")}
+            for r in kernels["coadd"]],
     }]}
     fa_rows = {r["case"]: r for r in kernels["flash_attention"]}
     fa_main, fa_prefill = fa_rows["main/serve"], fa_rows["main/prefill"]

@@ -44,6 +44,7 @@ from repro_torch.experiments import (CacheSpec, ClusterSpec, ExperimentSpec,
                                      ProvisionerSpec, RuntimeEngine,
                                      WorkloadSpec)
 from repro_torch.kernels.stacking import ops as st_ops
+from repro_torch.kernels.stacking import stacking as st_kernel
 
 SEED = 0
 H, W = ROI_SHAPE
@@ -68,23 +69,51 @@ def make_tiles(ob: DataObject) -> np.ndarray:
         .astype(np.float32)
 
 
-def coadd_params(tiles: torch.Tensor, seed_ids) -> tuple[torch.Tensor, ...]:
-    """(sky, cal, dy, dx) for coadding ``tiles`` (N, H, W), on its device.
-    Shift offsets are seeded by the input ids, never a shared stream, so the
-    pixels are independent of thread scheduling order."""
-    n = tiles.shape[0]
-    sky = tiles.mean(dim=(1, 2)) * 0.1
-    cal = torch.ones(n, dtype=torch.float32, device=tiles.device)
+#: the catalog's sky model: each tile's sky is this fraction of its mean
+#: (``coadd_params`` on the CPU; on a card the prep kernel of
+#: ``stacking.coadd_fwd`` takes it as an argument)
+SKY_FRACTION = 0.1
+
+
+def draw_shifts(seed_ids, n: int) -> np.ndarray:
+    """The (2, n) float32 sub-pixel shifts of a request over the files
+    ``seed_ids``: n dy draws, then n dx draws, of the request's own seeded
+    stream (never a shared one, so the pixels do not depend on thread
+    scheduling).  One call draws both rows: the same bits as two calls of
+    n each."""
     task_rng = np.random.default_rng([SEED + 1, *seed_ids])
-    dy = task_rng.random(n).astype(np.float32)
-    dx = task_rng.random(n).astype(np.float32)
+    return task_rng.random(2 * n).astype(np.float32).reshape(2, n)
+
+
+def coadd_params(tiles: torch.Tensor, seed_ids) -> tuple[torch.Tensor, ...]:
+    """(sky, cal, dy, dx) for coadding ``tiles`` (N, H, W), on its device:
+    sky :data:`SKY_FRACTION` of each tile's mean, cal 1, and
+    :func:`draw_shifts`."""
+    n = tiles.shape[0]
+    sky = tiles.mean(dim=(1, 2)) * SKY_FRACTION
+    cal = torch.ones(n, dtype=torch.float32, device=tiles.device)
     # one host-to-device copy for both shift vectors
-    shifts = torch.from_numpy(np.stack([dy, dx])).to(tiles.device)
-    return (sky, cal, *shifts.unbind(0))
+    dydx = torch.from_numpy(draw_shifts(seed_ids, n)).to(tiles.device)
+    dy, dx = dydx.unbind(0)
+    return sky, cal, dy, dx
 
 
 def _coadd(tiles: torch.Tensor, seed_ids) -> torch.Tensor:
-    """Calibrate -> sub-pixel shift -> accumulate via the stacking kernel."""
+    """Calibrate -> sub-pixel shift -> accumulate via the stacking kernel.
+
+    On a card the request's coadd is one call into the kernel library
+    (``stacking.coadd_fwd``): the sky means, unit cals and shifts are made
+    by a hand-written kernel beside the stacking kernel, and the shifts
+    travel inside the launch.  The executors are many threads sharing the
+    interpreter lock and one stream; the PyTorch calls of ``coadd_params``
+    each give up the lock, and its copy of the shifts from pageable memory
+    synchronises the shared stream, so each request would wait for the
+    work of every other.  This path does neither, and computes the same
+    coadd in fp32 (the sky means summed in another order).  On the CPU the
+    plain version runs on ``coadd_params``."""
+    if tiles.is_cuda:
+        return st_kernel.coadd_fwd(
+            tiles, draw_shifts(seed_ids, tiles.shape[0]), SKY_FRACTION)
     return st_ops.stack_rois(tiles, *coadd_params(tiles, seed_ids))
 
 

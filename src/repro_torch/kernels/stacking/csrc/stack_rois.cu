@@ -46,6 +46,30 @@
 //    repeat), so no fill value is ever read.
 // The per-ROI scalars are read by every thread at the same address (one
 // broadcast transaction per warp, cached in L1).
+//
+// A mean-sky coadd in one call (stack_rois_coadd).  A coadd whose sky is
+// a given fraction of each tile's mean, with unit calibration and shifts
+// given on the host, is one foreign call that enqueues its kernels on the
+// caller's stream and returns:
+//  - coadd_prep_kernel, one block per tile: sky[n] = sky_fraction *
+//    mean(tile n) (an fp32 block reduction over every pixel), cal[n] = 1,
+//    and the tile's dy[n], dx[n], written into a device scratch of 4N
+//    floats;
+//  - stack_rois_kernel, unchanged, reading that scratch.
+// Why one call: the executors are many Python threads; every PyTorch call
+// around a launch gives up the interpreter lock and waits to take it back
+// behind the others, and a blocking copy of the shifts from pageable
+// memory synchronises the stream that every executor shares, so a request
+// waited for every kernel and store read queued before it.  This entry is
+// called with the interpreter lock held (the library is a PyDLL) and
+// makes no synchronising call: the coadd is queued and nothing waits for
+// it.
+// The shifts travel as kernel parameters: the launch copies them with its
+// arguments, so they need no copy of their own.  A prep launch carries
+// kParamShifts pairs (2 KB, within the 4 KB of parameters every CUDA
+// version takes); more tiles (a join of several files) take one prep
+// launch per kParamShifts tiles, each with its own shifts and a base
+// offset into the scratch.
 #include <cuda_runtime.h>
 
 namespace {
@@ -132,6 +156,102 @@ cudaError_t launch(const float* rois, const float* sky, const float* cal,
   return cudaGetLastError();
 }
 
+// The kernel for N ROIs: kSplit rows for ceil(N / kGroup) groups.
+cudaError_t launch_stack(const float* rois, const float* sky, const float* cal,
+                         const float* dy, const float* dx, float* out, int n,
+                         int h, int w, int mean, cudaStream_t s) {
+  const int groups = (n + kGroup - 1) / kGroup;
+  if (groups >= 8)
+    return launch<8>(rois, sky, cal, dy, dx, out, n, h, w, mean, s);
+  if (groups >= 4)
+    return launch<4>(rois, sky, cal, dy, dx, out, n, h, w, mean, s);
+  if (groups >= 2)
+    return launch<2>(rois, sky, cal, dy, dx, out, n, h, w, mean, s);
+  return launch<1>(rois, sky, cal, dy, dx, out, n, h, w, mean, s);
+}
+
+int set_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return static_cast<int>(err);
+}
+
+// ---- the one-call coadd -------------------------------------------------
+
+constexpr int kPrepThreads = 256;
+// shift pairs one prep launch carries: the app's files hold 8 to 150 tiles,
+// so a request's coadd takes one prep launch
+constexpr int kParamShifts = 256;
+
+// dy and dx of up to kParamShifts tiles, by value in the launch
+struct Shifts {
+  float dy[kParamShifts];
+  float dx[kParamShifts];
+};
+
+// Block b, for tile t = base + b: sky[t] = sky_fraction * mean(tile t) in
+// fp32, cal[t] = 1, and dy[t], dx[t] from the launch's parameters.
+// Scratch layout: sky, cal, dy, dx, N floats each.  The sum's order is
+// fixed by the thread layout, so a call gives the same bits every time.
+__global__ void __launch_bounds__(kPrepThreads)
+coadd_prep_kernel(const float* __restrict__ rois, long long plane, int n,
+                  int base, float sky_fraction, float* __restrict__ scratch,
+                  const __grid_constant__ Shifts shifts) {
+  const int b = blockIdx.x;
+  const int t = base + b;
+  const float* tile = rois + t * plane;
+  float acc = 0.0f;
+  if ((plane & 3) == 0 && (reinterpret_cast<size_t>(tile) & 15) == 0) {
+    const float4* t4 = reinterpret_cast<const float4*>(tile);
+    const long long n4 = plane >> 2;
+#pragma unroll 4
+    for (long long i = threadIdx.x; i < n4; i += kPrepThreads) {
+      const float4 v = __ldg(t4 + i);
+      acc += (v.x + v.y) + (v.z + v.w);
+    }
+  } else {
+#pragma unroll 4
+    for (long long i = threadIdx.x; i < plane; i += kPrepThreads)
+      acc += __ldg(tile + i);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  __shared__ float warp_sum[kPrepThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sum[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  float sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kPrepThreads / 32; ++k) sum += warp_sum[k];
+  scratch[t] = sum / static_cast<float>(plane) * sky_fraction;
+  scratch[n + t] = 1.0f;
+  scratch[2 * n + t] = shifts.dy[b];
+  scratch[3 * n + t] = shifts.dx[b];
+}
+
+// The prep kernel over all n tiles, kParamShifts tiles a launch.
+// host_shifts holds every dy, then every dx.
+cudaError_t launch_prep(const float* rois, long long plane, int n,
+                        float sky_fraction, float* scratch,
+                        const float* host_shifts, cudaStream_t s) {
+  for (int base = 0; base < n; base += kParamShifts) {
+    const int count = n - base < kParamShifts ? n - base : kParamShifts;
+    Shifts p;
+    for (int i = 0; i < count; ++i) {
+      p.dy[i] = host_shifts[base + i];
+      p.dx[i] = host_shifts[n + base + i];
+    }
+    coadd_prep_kernel<<<count, kPrepThreads, 0, s>>>(
+        rois, plane, n, base, sky_fraction, scratch, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Plain C entry point, called through ctypes.  Every pointer is a device
@@ -143,19 +263,31 @@ extern "C" int stack_rois_launch(const float* rois, const float* sky,
                                  const float* cal, const float* dy,
                                  const float* dx, float* out, int n, int h,
                                  int w, int mean, int device, void* stream) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = set_device(device);
+  if (err != 0) return err;
+  return static_cast<int>(launch_stack(rois, sky, cal, dy, dx, out, n, h,
+                                       w, mean,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// A mean-sky coadd in one call (see the head of this file).  rois (n, h,
+// w), scratch (4n,) and out (h, w) are device pointers to contiguous fp32
+// on `device`; shifts is a host pointer to 2n fp32, every dy then every
+// dx.  Enqueues the prep kernel (one launch per kParamShifts tiles) and the
+// stacking kernel on `stream`, and returns 0 or the first CUDA error.
+// Nothing waits for the card.
+extern "C" int stack_rois_coadd(const float* rois, const float* shifts,
+                                float sky_fraction, float* scratch,
+                                float* out, int n, int h, int w, int mean,
+                                int device, void* stream) {
+  const int err = set_device(device);
+  if (err != 0) return err;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int groups = (n + kGroup - 1) / kGroup;
-  if (groups >= 8)
-    err = launch<8>(rois, sky, cal, dy, dx, out, n, h, w, mean, s);
-  else if (groups >= 4)
-    err = launch<4>(rois, sky, cal, dy, dx, out, n, h, w, mean, s);
-  else if (groups >= 2)
-    err = launch<2>(rois, sky, cal, dy, dx, out, n, h, w, mean, s);
-  else
-    err = launch<1>(rois, sky, cal, dy, dx, out, n, h, w, mean, s);
-  return static_cast<int>(err);
+  const cudaError_t e =
+      launch_prep(rois, static_cast<long long>(h) * w, n, sky_fraction,
+                  scratch, shifts, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float* sky = scratch;
+  return static_cast<int>(launch_stack(rois, sky, sky + n, sky + 2 * n,
+                                       sky + 3 * n, out, n, h, w, mean, s));
 }

@@ -7,12 +7,28 @@ output, launches on PyTorch's current stream and counts the launch.  It
 takes CUDA tensors only: the CPU's path is ``ref.py``, chosen in ``ops.py``.
 Inside a recorded request attempt (``repro_torch.obs.request``) the launch
 call is a ``launch`` span of that request.
+
+``coadd_fwd`` is a mean-sky coadd in one foreign call: sky a given
+fraction of each tile's mean, cal 1, the shifts given on the host (the app
+names the fraction).  The many executor threads of the runtime share the
+interpreter lock and the card's one stream.  Each PyTorch call around a
+launch gives up the lock and waits behind the other threads to take it
+back, and a blocking copy of the shifts from pageable memory synchronises
+the shared stream, so a request waited for every kernel and store read
+queued before it.  So the wrapper makes one allocation (the output, then a
+scratch of 4N floats for sky, cal, dy and dx) and one call into the
+library, which is a ``PyDLL`` and keeps the lock.  The call enqueues a
+hand-written prep kernel (the sky means, the unit cals, the shifts) and
+the stacking kernel, and returns: nothing synchronises.  The shifts travel
+inside the prep kernel's launch as parameters, with no copy of their own,
+256 tiles' worth a launch (``csrc/stack_rois.cu``'s head says more).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ...obs.recorder import request
@@ -20,9 +36,16 @@ from ..build import LaunchCounter, load
 
 #: launches of the stacking kernel (``launches.value``; ``reset()`` to zero)
 launches = LaunchCounter("stack_rois")
+#: coadds issued through the one-call entry (``coadd_fwd``)
+coadd_calls = LaunchCounter("stack_rois/coadd")
 
 _F32 = torch.float32
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#: tiles, shifts (host bytes), sky fraction, scratch, out; n, h, w, mean,
+#: device; stream
+_COADD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_float,
+                    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
 
 
 @functools.cache
@@ -30,6 +53,15 @@ def _entry():
     """The C entry point, loaded (and built) on first launch."""
     fn = load("stack_rois").stack_rois_launch
     fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _coadd_entry():
+    """The one-call coadd's C entry, loaded (and built) on first call."""
+    fn = load("stack_rois").stack_rois_coadd
+    fn.argtypes = _COADD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -106,4 +138,62 @@ def stack_rois_fwd(rois: torch.Tensor, sky: torch.Tensor, cal: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"stack_rois kernel launch failed: CUDA error {err}")
     launches.add()
+    return out
+
+
+def check_coadd_inputs(tiles: torch.Tensor, shifts: np.ndarray) -> None:
+    """Raise unless tiles (N,H,W) are contiguous fp32 on a CUDA device, none
+    of N, H, W 0, and shifts a (2, N) float32 host array.  Inputs that pass
+    cost one expression."""
+    if (tiles.dim() == 3 and tiles.is_cuda and tiles.dtype is _F32
+            and tiles.is_contiguous() and min(tiles.shape) >= 1
+            and isinstance(shifts, np.ndarray) and shifts.dtype == np.float32
+            and shifts.shape == (2, tiles.shape[0])):
+        return
+    if tiles.dim() != 3 or min(tiles.shape) < 1:
+        raise ValueError(f"tiles must be (N, H, W), none of them 0, got "
+                         f"{tuple(tiles.shape)}")
+    if not tiles.is_cuda:
+        raise ValueError(f"tiles are on {tiles.device}; the kernel takes a "
+                         f"CUDA device")
+    if tiles.dtype != torch.float32:
+        raise TypeError(f"tiles are {tiles.dtype}; the kernel takes float32")
+    if not tiles.is_contiguous():
+        raise ValueError("tiles are not contiguous")
+    raise ValueError(f"shifts must be a float32 host array of shape "
+                     f"(2, {tiles.shape[0]})")
+
+
+def coadd_fwd(tiles: torch.Tensor, shifts: np.ndarray,
+              sky_fraction: float) -> torch.Tensor:
+    """The (H,W) fp32 mean coadd of ``tiles`` (N,H,W), contiguous fp32 on a
+    CUDA device: each tile calibrated with sky ``sky_fraction`` times its
+    fp32 mean and cal 1, shifted by its (dy, dx) -- ``shifts`` a (2, N)
+    float32 host array, dy then dx -- summed and divided by N.  One
+    allocation and one call into the library; the kernels are queued on
+    PyTorch's current stream and nothing waits for them."""
+    check_coadd_inputs(tiles, shifts)
+    n, h, w = tiles.shape
+    # the output's rows, then whole rows that hold sky, cal, dy and dx
+    buf = tiles.new_empty((h + -(-4 * n // w), w))
+    out = buf[:h]
+    device = tiles.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    coadd = _coadd_entry()
+    ptr = buf.data_ptr()
+    args = (tiles.data_ptr(), shifts.tobytes(), sky_fraction,
+            ptr + 4 * h * w, ptr, n, h, w, 1, device, stream)
+    ctx = request()
+    if ctx is None:
+        err = coadd(*args)
+    else:
+        rec, tid, eid = ctx
+        t0 = rec.clock()
+        err = coadd(*args)
+        rec.span("launch", t0, rec.clock() - t0, tid=tid, eid=eid,
+                 kernel="stack_rois", parent="fn")
+    if err != 0:
+        raise RuntimeError(f"stack_rois coadd failed: CUDA error {err}")
+    launches.add()
+    coadd_calls.add()
     return out

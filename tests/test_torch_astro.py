@@ -151,6 +151,42 @@ def test_make_tiles_matches_reference_content():
             EX_make_tiles(JaxDataObject(oid, 1)))
 
 
+#: (the request's file ids, its tile count): the CLI's one file of 8
+#: tiles, the benchmark's file of 150, and k-file joins
+SHIFT_CASES = [([0], 8), ([17], 150), ([4647, 9295], 300),
+               ([3, 5, 7, 11], 32)]
+
+
+def _former_draws(seed_ids, n):
+    """dy and dx as ``coadd_params`` drew them before ``draw_shifts``: two
+    draws of n from the request's stream, each cast to float32."""
+    rng = np.random.default_rng([astro.SEED + 1, *seed_ids])
+    return (rng.random(n).astype(np.float32),
+            rng.random(n).astype(np.float32))
+
+
+@pytest.mark.parametrize("seed_ids,n", SHIFT_CASES)
+def test_draw_shifts_gives_the_former_draws_bit_for_bit(seed_ids, n):
+    dy, dx = _former_draws(seed_ids, n)
+    got = astro.draw_shifts(seed_ids, n)
+    assert got.dtype == np.float32 and got.shape == (2, n)
+    assert got.tobytes() == dy.tobytes() + dx.tobytes()
+
+
+@pytest.mark.parametrize("seed_ids,n", SHIFT_CASES)
+def test_coadd_params_on_cpu_tiles_are_unchanged(seed_ids, n):
+    tiles = torch.from_numpy(np.random.default_rng(n).normal(
+        500, 100, (n, 6, 5)).astype(np.float32))
+    sky, cal, dy, dx = astro.coadd_params(tiles, seed_ids)
+    want_dy, want_dx = _former_draws(seed_ids, n)
+    assert torch.equal(sky, tiles.mean(dim=(1, 2)) * 0.1)
+    assert torch.equal(cal, torch.ones(n))
+    assert torch.equal(dy, torch.from_numpy(want_dy))
+    assert torch.equal(dx, torch.from_numpy(want_dx))
+    assert all(t.dtype == torch.float32 and t.device.type == "cpu"
+               for t in (sky, cal, dy, dx))
+
+
 def _stdout(fn, argv):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf), \

@@ -124,14 +124,114 @@ def test_flat_path_launches_once_per_task(cuda):
     eng = RuntimeEngine(device="cuda").prepare(astro.flat_spec(64, 4, 8))
     try:
         before = stacking.launches.value
+        one_call = stacking.coadd_calls.value
         rep = eng.run(task_fn=astro.stack_object,
                       payload_factory=astro.make_tiles, timeout=120.0)
         torch.cuda.synchronize()
         assert stacking.launches.value - before == rep.n_completed == 64
+        assert stacking.coadd_calls.value - one_call == 64
         for w in eng.runtime.workers.values():
             assert all(p.device == cuda for p in w.payloads.values())
     finally:
         eng.shutdown()
+
+
+#: (N, H, W, file ids) of the one-call coadd: one tile, the CLI's file,
+#: the benchmark's file, one prep launch's worth of tiles and one more, a
+#: 2-file join, a plane the prep kernel reads one float at a time, and a
+#: join of many files (17 prep launches)
+COADD_CASES = [(1, 100, 100, [5]), (8, 100, 100, [17]),
+               (150, 100, 100, [4647]), (256, 16, 16, [9]),
+               (257, 16, 16, [10]), (300, 100, 100, [4647, 9295]),
+               (150, 21, 33, [3]), (4100, 16, 16, list(range(41)))]
+
+
+def _scratch(out, n):
+    """sky, cal, dy, dx as the one-call coadd left them after its output."""
+    h, w = out.shape
+    flat = torch.empty(0, device=out.device).set_(out.untyped_storage())
+    return flat[h * w:h * w + 4 * n].view(4, n)
+
+
+@pytest.mark.parametrize("N,H,W,ids", COADD_CASES)
+def test_one_call_coadd_matches_the_launches_it_replaces(cuda, N, H, W, ids):
+    """The one-call coadd against the same coadd made the former way
+    (``coadd_params`` and the stacking kernel) and against the plain
+    version, at the kernel's tolerance; its scratch holds the sky means,
+    unit cals and the request's exact shifts, across prep launches too; it
+    counts one stacking launch and one one-call coadd."""
+    from repro_torch.apps import astro
+
+    tiles = _inputs(N, H, W, seed=N + H, dev=cuda)[0]
+    counters = (stacking.launches, stacking.coadd_calls)
+    before = [c.value for c in counters]
+    got = stacking.coadd_fwd(tiles, astro.draw_shifts(ids, N),
+                             astro.SKY_FRACTION)
+    after = [c.value for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
+    params = astro.coadd_params(tiles, ids)
+    former = ops.stack_rois(tiles, *params)
+    plain = stack_rois_ref(tiles, *params) / N
+    torch.cuda.synchronize()
+    assert got.shape == (H, W) and got.dtype == torch.float32
+    for want in (former, plain):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    sky, cal, dy, dx = _scratch(got, N)
+    torch.testing.assert_close(sky, params[0], rtol=1e-5, atol=0)
+    assert torch.equal(cal, params[1])
+    assert torch.equal(dy, params[2]) and torch.equal(dx, params[3])
+
+
+def test_one_call_coadd_takes_its_sky_fraction(cuda):
+    """The sky fraction is the caller's: 0 leaves the tiles uncalibrated,
+    and another fraction gives that fraction of each mean."""
+    from repro_torch.apps import astro
+
+    tiles = _inputs(40, 24, 24, seed=2, dev=cuda)[0]
+    shifts = astro.draw_shifts([2], 40)
+    means = tiles.mean(dim=(1, 2))
+    for fraction in (0.0, 0.35):
+        got = stacking.coadd_fwd(tiles, shifts, fraction)
+        sky = _scratch(got, 40)[0]
+        torch.testing.assert_close(sky, means * fraction, rtol=1e-5, atol=0)
+        dy, dx = torch.from_numpy(shifts).to(cuda)
+        want = stack_rois_ref(tiles, means * fraction, torch.ones_like(dy),
+                              dy, dx) / 40
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_stack_object_on_the_card_never_synchronises(cuda):
+    """``stack_object`` on the card under the sync debug mode's "error":
+    no synchronising call, at one file and at a 2-file join (two prep
+    launches).  The former coadd, whose shifts were a blocking
+    copy from pageable memory, raises under the same mode."""
+    from repro_torch.apps import astro
+
+    tiles = _inputs(150, 100, 100, seed=1, dev=cuda)[0]
+    stacking._coadd_entry()          # the build and load, outside the mode
+    astro.stack_object({"img7": tiles})
+    torch.cuda.synchronize()
+    before = (stacking.launches.value, stacking.coadd_calls.value)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [astro.stack_object({f"img{i}": tiles}) for i in range(8)]
+        joined = astro.stack_object({"img8": tiles, "img9": tiles})
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            ops.stack_rois(tiles, *astro.coadd_params(tiles, [7]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (stacking.launches.value - before[0],
+            stacking.coadd_calls.value - before[1]) == (9, 9)
+    for i, got in enumerate(outs):
+        want = stack_rois_ref(tiles, *astro.coadd_params(tiles, [i])) / 150
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    both = torch.cat([tiles, tiles])
+    want = stack_rois_ref(both, *astro.coadd_params(both, [8, 9])) / 300
+    torch.testing.assert_close(joined, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 def test_elastic_release_gives_device_memory_back(cuda):

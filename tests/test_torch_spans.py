@@ -275,6 +275,53 @@ def test_the_launch_span_is_the_requests(monkeypatch):
     assert len([s for s in rec.spans() if s["kind"] == "launch"]) == 6
 
 
+def test_the_one_call_coadd_is_one_launch_span_and_one_count(monkeypatch):
+    """The one-call coadd, with the C entry and the card's checks replaced:
+    one call into the library a request, inside a ``launch`` span of the
+    attempt; the output is the first H*W floats of its one allocation and
+    the scratch follows it; the shifts and the sky fraction reach the entry
+    as given; every coadd adds one to the kernel's launches and to the
+    one-call counter."""
+    calls = []
+    monkeypatch.setattr(stacking, "check_coadd_inputs", lambda *a: None)
+    monkeypatch.setattr(stacking, "_coadd_entry",
+                        lambda: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(stacking.torch._C, "_cuda_getCurrentRawStream",
+                        lambda device: 7, raising=False)
+    counters = (stacking.launches, stacking.coadd_calls)
+    before = [c.value for c in counters]
+    rec = obs.Recorder()
+    outs = {}
+
+    def fn(inputs):
+        (x,) = inputs.values()
+        shifts = np.arange(2 * x.shape[0], dtype=np.float32).reshape(2, -1)
+        out = stacking.coadd_fwd(x, shifts, 0.25)
+        outs[x.data_ptr()] = out
+        return out
+
+    rt = _run(rec, fn, n_tasks=6, batches=1)
+    launches = [s for s in rec.spans() if s["kind"] == "launch"]
+    assert len(calls) == len(launches) == 6
+    assert sorted(s["tid"] for s in launches) \
+        == sorted(t.tid for t in rt.dispatcher.completed)
+    assert all(s["parent"] == "fn" and s["kernel"] == "stack_rois"
+               for s in launches)
+    for tiles_ptr, shifts, fraction, scratch, out_ptr, n, h, w, mean, _, \
+            stream in calls:
+        out = outs[tiles_ptr]
+        assert out.shape == (h, w) and out.data_ptr() == out_ptr
+        assert scratch == out_ptr + 4 * h * w
+        assert out.untyped_storage().nbytes() >= 4 * (h * w + 4 * n)
+        assert shifts == np.arange(2 * n, dtype=np.float32).tobytes()
+        assert (fraction, mean, stream) == (0.25, 1, 7)
+    assert [c.value - b for c, b in zip(counters, before)] == [6, 6]
+    stacking.coadd_fwd(torch.ones(5, 3, 3), np.ones((2, 5), np.float32), 0.1)
+    assert len(calls) == 7
+    assert [c.value - b for c, b in zip(counters, before)] == [7, 7]
+    assert len([s for s in rec.spans() if s["kind"] == "launch"]) == 6
+
+
 def test_with_no_recorder_nothing_is_recorded_or_installed():
     hooks_before = list(gc.callbacks)
     seen = []

@@ -104,6 +104,20 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert stacking.launches.value == before
 
 
+def test_one_call_coadd_refuses_cpu_tiles():
+    """The one-call coadd never computes on the CPU either: CPU tiles are
+    refused before the library is loaded, and nothing is counted."""
+    tiles = torch.from_numpy(_inputs(3, 8, 8, seed=5)[0])
+    shifts = np.zeros((2, 3), np.float32)
+    counters = (stacking.launches, stacking.coadd_calls)
+    before = [c.value for c in counters]
+    with pytest.raises(ValueError, match="CUDA"):
+        stacking.coadd_fwd(tiles, shifts, 0.1)
+    with pytest.raises(ValueError, match="N, H, W"):
+        stacking.coadd_fwd(tiles[0], shifts, 0.1)
+    assert [c.value for c in counters] == before
+
+
 def test_launch_counter_loses_no_count_across_threads():
     """Executor threads launch concurrently; every add must count."""
     counter = LaunchCounter()
