@@ -16,8 +16,10 @@ Where the card enters (the one departure from the reference):
     reference, so on one card a peer hit copies nothing.  Evicting an entry
     drops the tensor, which frees its device memory.
   * a task function always receives device tensors: after a miss,
-    ``_resolve`` returns the admitted device copy (or, when the cache refuses
-    an object larger than its capacity, a device copy made for this task).
+    ``CacheExecutorBase.stage_input`` returns the admitted device copy (or,
+    when the cache refuses an object larger than its capacity, a device copy
+    made for this task).  That one request path serves the executor threads
+    here and those of a fleet host alike.
   * removing an executor (a failure, or the provisioner releasing it) drops
     its cache in ``remove_executor`` itself, so when that returns the card
     no longer holds a tensor that only this executor held.  A tensor a
@@ -132,7 +134,9 @@ class ObjectStore:
 @dataclass
 class _InputLedger:
     """Per-attempt input accounting, merged into the Task under the runtime
-    lock once the attempt is known to still count (see _execute)."""
+    lock once the attempt is known to still count (see
+    ``DiffusionRuntime._finish_attempt_locked``).  A fleet host sends it
+    upstream as ``dataclasses.asdict``."""
 
     bytes_local: int = 0
     bytes_cache_to_cache: int = 0
@@ -223,18 +227,6 @@ class RuntimeLedger:
     peer_hits: int = 0
     store_reads: int = 0
 
-    def account(self, kind: str, n: int) -> None:
-        with self.lock:
-            if kind == "local":
-                self.bytes_local += n
-                self.local_hits += 1
-            elif kind == "c2c":
-                self.bytes_c2c += n
-                self.peer_hits += 1
-            else:
-                self.bytes_store += n
-                self.store_reads += 1
-
     def account_attempt(self, acc: "_InputLedger") -> None:
         """Fold one *counted* attempt's per-input ledger in atomically.
         Store-read occurrences are ``cache_misses - peer_hits`` (a miss is
@@ -259,13 +251,17 @@ class RuntimeLedger:
 
 
 class CacheExecutorBase:
-    """Executor-local payload cache + dispatch inbox Channel -- the parts
-    of an executor that are identical whether it lives in this process
-    (:class:`ExecutorWorker`) or inside a fleet host process
-    (``repro_torch.fleet.host.HostExecutor``).  ONE implementation of
-    lookup/peek/admit semantics, so the two runtimes the fleet's parity
-    tests compare cannot silently drift.  Cached payloads are tensors on
-    ``device`` (see the module docstring)."""
+    """An executor's cache, dispatch inbox and request path: what is the
+    same whether it lives in this process (:class:`ExecutorWorker`) or
+    inside a fleet host process (``repro_torch.fleet.host.HostExecutor``).
+
+    ``attempt`` is the one request path, from a dispatch to its outputs in
+    the cache, and ``stage_input`` the one way an input reaches the device
+    and is counted, so the two runtimes the fleet's parity tests compare
+    cannot drift.  A subclass says only where a peer's payload comes from
+    (``_peer_payload``), where the store is read (``_store_read``) and where
+    an admission is announced (``_announce``).  Cached payloads are tensors
+    on ``device`` (see the module docstring)."""
 
     def __init__(self, eid: str, cache_capacity: int,
                  policy: EvictionPolicy, seed: int,
@@ -320,6 +316,122 @@ class CacheExecutorBase:
                 self.payloads.pop(oid, None)
             return (obj.oid,), tuple(evicted)
 
+    # -- where the executor kinds differ ---------------------------------------
+    def _peer_payload(self, peer_id: str, oid: str) -> Optional[Any]:
+        """``peer_id``'s cached ``oid``; None on a miss or no route."""
+        raise NotImplementedError
+
+    def _store_read(self, oid: str) -> tuple[DataObject, Any]:
+        """``(object, payload)`` from the store; KeyError on a miss."""
+        raise NotImplementedError
+
+    def _announce(self, added: tuple[str, ...],
+                  removed: tuple[str, ...]) -> None:
+        """One admission's index update, towards the dispatcher."""
+        raise NotImplementedError
+
+    def _peer_object(self, oid: str, size: int) -> DataObject:
+        """The object a payload fetched from a peer is cached as."""
+        return DataObject(oid, size)
+
+    # -- the request path --------------------------------------------------------
+    def _admit(self, obj: DataObject, payload: Any) -> None:
+        self._announce(*self.cache_admit(obj, payload))
+
+    def stage_input(self, rec, acc: _InputLedger, tid: str, oid: str,
+                    size: int, hints: dict) -> Any:
+        """Stage one input of ``size`` bytes on the device, counted in
+        ``acc``: the local cache, else the peers ``hints`` names for it in
+        hint order, else the store with its one host-to-device copy.  Only
+        ``acc`` is written, never the task or a global ledger: this runs
+        lock-free on the executor's thread, and an attempt on an executor
+        removed meanwhile must not race its counters against the retry's.
+        The runtime merges ``acc`` under its lock once the attempt is known
+        to count (``DiffusionRuntime._finish_attempt_locked``)."""
+        payload = self.cache_lookup(oid)
+        if payload is not None:
+            acc.cache_hits += 1
+            acc.bytes_local += size
+            if rec is not None:
+                rec.emit("input", tid=tid, eid=self.eid, oid=oid,
+                         source="local", bytes=size)
+            return payload
+        acc.cache_misses += 1
+        for peer_id in hints.get(oid, ()):
+            if peer_id == self.eid:
+                continue
+            payload = self._peer_payload(peer_id, oid)
+            if payload is not None:
+                acc.peer_hits += 1
+                acc.bytes_cache_to_cache += size
+                if rec is not None:
+                    rec.emit("input", tid=tid, eid=self.eid, oid=oid,
+                             source="peer", bytes=size, peer=peer_id)
+                payload = on_device(payload, self.device)
+                self._admit(self._peer_object(oid, size), payload)
+                return payload
+        obj, payload = self._store_read(oid)
+        acc.bytes_store += obj.size_bytes
+        # the one host-to-device copy of a store read; the cache keeps this
+        # same tensor (or refuses it, and then only this task uses it)
+        if rec is None:
+            payload = on_device(payload, self.device)
+        else:
+            rec.emit("input", tid=tid, eid=self.eid, oid=oid,
+                     source="store", bytes=obj.size_bytes)
+            t0 = rec.clock()
+            payload = on_device(payload, self.device)
+            rec.span("store_copy", t0, rec.clock() - t0, tid=tid,
+                     eid=self.eid, bytes=obj.size_bytes, parent="stage")
+        self._admit(obj, payload)
+        return payload
+
+    def attempt(self, rec, tid: str, fn: Optional[Callable[..., Any]],
+                inputs: Iterable[tuple[str, int]], outputs: list[DataObject],
+                hints: dict) -> tuple[bool, Any, _InputLedger]:
+        """Run one attempt of task ``tid``: stage its ``(oid, size)``
+        inputs, call ``fn`` on them and admit its outputs.  Returns ``(ok,
+        result, ledger)``, the result being the exception when the attempt
+        failed.  With a recorder ``rec`` the thread carries the request
+        context and the call is an ``fn`` span (wall and thread CPU seconds,
+        and whether it returned); without one no clock is read."""
+        acc = _InputLedger()
+        result = None
+        if rec is not None:
+            rec.enter(tid, self.eid)
+        try:
+            staged = {oid: self.stage_input(rec, acc, tid, oid, size, hints)
+                      for oid, size in inputs}
+            if rec is not None:
+                rec.emit("exec_start", tid=tid, eid=self.eid)
+            if fn is not None and rec is None:
+                result = _call(fn, staged)
+            elif fn is not None:
+                t0, cpu0, returned = rec.clock(), time.thread_time(), False
+                try:
+                    result = _call(fn, staged)
+                    returned = True
+                finally:
+                    rec.span("fn", t0, rec.clock() - t0, tid=tid,
+                             eid=self.eid, cpu=time.thread_time() - cpu0,
+                             ok=returned)
+            for ob in outputs:
+                # shape-only tasks (no fn) produce no real payload; admit the
+                # sentinel so downstream DAG reads still count as cache hits
+                # (a None payload would read as a miss on every lookup)
+                if fn is None:
+                    payload = SHAPE_ONLY_PAYLOAD
+                else:
+                    payload = result if len(outputs) == 1 else result[ob.oid]
+                self._admit(ob, payload)
+            ok = True
+        except Exception as e:  # noqa: BLE001 - task failure is data, not a crash
+            ok, result = False, e
+        if rec is not None:
+            rec.leave()
+            rec.emit("exec_end", tid=tid, eid=self.eid, ok=ok)
+        return ok, result, acc
+
 
 class ExecutorWorker(CacheExecutorBase):
     """A worker thread with a local payload cache.
@@ -348,9 +460,23 @@ class ExecutorWorker(CacheExecutorBase):
         except ChannelClosed:
             pass   # racing a stop(); the membership guard already dropped us
 
-    def admit_update(self, obj: DataObject, payload: Any) -> IndexUpdate:
-        added, removed = self.cache_admit(obj, payload)
-        return IndexUpdate(self.eid, added=added, removed=removed)
+    def _peer_payload(self, peer_id: str, oid: str) -> Optional[Any]:
+        peer = self.rt.workers.get(peer_id)
+        return None if peer is None else peer.cache_peek(oid)
+
+    def _store_read(self, oid: str) -> tuple[DataObject, Any]:
+        return self.rt.store.get(oid)
+
+    def _peer_object(self, oid: str, size: int) -> DataObject:
+        # the store's own object: a store filled before the runtime was
+        # built (the data pipeline's) has no size in dispatcher.sizes
+        store = self.rt.store
+        return store.meta(oid) if oid in store else DataObject(oid, size)
+
+    def _announce(self, added: tuple[str, ...],
+                  removed: tuple[str, ...]) -> None:
+        self.rt.update_channel.send(
+            IndexUpdate(self.eid, added=added, removed=removed))
 
     # -- task loop --------------------------------------------------------------
     def _run(self) -> None:
@@ -669,66 +795,6 @@ class DiffusionRuntime:
                 continue
             w.dispatch(d)
 
-    def _resolve(self, acc: "_InputLedger", w: ExecutorWorker, oid: str,
-                 hints: dict[str, tuple[str, ...]], tid: str = "") -> Any:
-        """Stage one input on ``w``'s device, accounting a per-attempt
-        accumulator (joins need the per-task split: a k-input task may hit
-        locally on some inputs, peer-fetch others, miss the rest).  Only
-        the accumulator -- never the task or the global ledger -- is
-        written here because this runs lock-free on the worker thread: if
-        the worker is removed mid-execution, executor_left resets and
-        re-queues the task, and a zombie attempt must not race its counters
-        against the retry's.  _finish_attempt merges the accumulator into
-        the task AND the global ledger under the lock, after the membership
-        guard drops de-registered workers -- so ledger totals always equal
-        the sum of counted attempts (fleet hosts report through the same
-        path)."""
-        size = self.dispatcher.sizes.get(oid, 0)
-        rec = self.recorder
-        payload = w.cache_lookup(oid)
-        if payload is not None:
-            acc.cache_hits += 1
-            acc.bytes_local += size
-            if rec is not None:
-                rec.emit("input", tid=tid, eid=w.eid, oid=oid,
-                         source="local", bytes=size)
-            return payload
-        acc.cache_misses += 1
-        for peer_id in hints.get(oid, ()):
-            if peer_id == w.eid:
-                continue
-            peer = self.workers.get(peer_id)
-            if peer is None:
-                continue
-            payload = peer.cache_peek(oid)
-            if payload is not None:
-                acc.peer_hits += 1
-                acc.bytes_cache_to_cache += size
-                if rec is not None:
-                    rec.emit("input", tid=tid, eid=w.eid, oid=oid,
-                             source="peer", bytes=size, peer=peer_id)
-                obj = self.store.meta(oid) if oid in self.store else DataObject(oid, size)
-                self._emit(w.admit_update(obj, payload))
-                return payload
-        obj, payload = self.store.get(oid)
-        acc.bytes_store += obj.size_bytes
-        # the one host-to-device copy of a store read; the cache keeps this
-        # same tensor (or refuses it, and then only this task uses it)
-        if rec is None:
-            payload = on_device(payload, w.device)
-        else:
-            rec.emit("input", tid=tid, eid=w.eid, oid=oid,
-                     source="store", bytes=obj.size_bytes)
-            t0 = rec.clock()
-            payload = on_device(payload, w.device)
-            rec.span("store_copy", t0, rec.clock() - t0, tid=tid, eid=w.eid,
-                     bytes=obj.size_bytes, parent="stage")
-        self._emit(w.admit_update(obj, payload))
-        return payload
-
-    def _emit(self, upd: IndexUpdate) -> None:
-        self.update_channel.send(upd)
-
     def _on_update(self, upd: IndexUpdate) -> None:
         """Consumer side of the update seam (same code path for in-process
         sends and for updates arriving from fleet hosts)."""
@@ -843,37 +909,12 @@ class DiffusionRuntime:
         t = disp.task
         t.state = TaskState.RUNNING
         t.start_time = time.monotonic()
-        ok = True
-        acc = _InputLedger()
-        rec = self.recorder
-        if rec is not None:
-            rec.enter(t.tid, w.eid)
-        try:
-            inputs = {oid: self._resolve(acc, w, oid, disp.hints, tid=t.tid)
-                      for oid in t.inputs}
-            if rec is not None:
-                rec.emit("exec_start", tid=t.tid, eid=w.eid)
-            if t.fn is not None:
-                if rec is None:
-                    t.result = _call(t.fn, inputs)
-                else:
-                    t.result = _call_recorded(rec, t, w.eid, inputs)
-            for ob in t.outputs:
-                # shape-only tasks (no fn) produce no real payload; admit the
-                # sentinel so downstream DAG reads still count as cache hits
-                # (a None payload would read as a miss on every lookup)
-                if t.fn is None:
-                    payload = SHAPE_ONLY_PAYLOAD
-                else:
-                    payload = t.result if len(t.outputs) == 1 else t.result[ob.oid]
-                self._emit(w.admit_update(ob, payload))
-                self.dispatcher.sizes[ob.oid] = ob.size_bytes
-        except Exception as e:  # noqa: BLE001 - task failure is data, not a crash
-            ok = False
-            t.result = e
-        if rec is not None:
-            rec.leave()
-            rec.emit("exec_end", tid=t.tid, eid=w.eid, ok=ok)
+        sizes = self.dispatcher.sizes
+        inputs = [(oid, sizes.get(oid, 0)) for oid in t.inputs]
+        ok, t.result, acc = w.attempt(self.recorder, t.tid, t.fn, inputs,
+                                      t.outputs, disp.hints)
+        for ob in t.outputs:
+            sizes[ob.oid] = ob.size_bytes
         self._finish_attempt(w, t, acc, ok)
         self._pump()
 
@@ -943,20 +984,6 @@ class DiffusionRuntime:
 
 def _call(fn: Callable[..., Any], inputs: dict) -> Any:
     return fn(**inputs) if _wants_kwargs(fn) else fn(inputs)
-
-
-def _call_recorded(rec, t: Task, eid: str, inputs: dict) -> Any:
-    """``_call`` inside an ``fn`` span: wall and thread CPU seconds, and
-    whether it returned."""
-    t0, cpu0 = rec.clock(), time.thread_time()
-    ok = False
-    try:
-        result = _call(t.fn, inputs)
-        ok = True
-        return result
-    finally:
-        rec.span("fn", t0, rec.clock() - t0, tid=t.tid, eid=eid,
-                 cpu=time.thread_time() - cpu0, ok=ok)
 
 
 def _wants_kwargs(fn: Callable[..., Any]) -> bool:

@@ -5,14 +5,16 @@ One host = one OS process (its own GIL -- the whole point) running:
   * a dispatch loop: framed messages from the central process, in order
     (``put`` store replicas, ``spawn``/``stop`` executors, ``task``
     dispatches routed to the executor's local channel, ``shutdown``);
-  * ``threads_per_host`` executor threads, each an exact structural twin
-    of `repro_torch.core.runtime.ExecutorWorker`: ExecutorCache + payload
-    dict + dispatch Channel, resolving inputs local-cache -> hinted peers
-    (in hint order; peers on this host are an in-process peek that shares
-    the cached tensor, peers on other hosts a socket fetch) -> store
-    replica, then running the task fn and caching outputs.  Index updates
-    stream upstream *before* the attempt's ``done`` (the Channel seam
-    ordering contract);
+  * ``threads_per_host`` executor threads, each running the request path
+    of `repro_torch.core.runtime.CacheExecutorBase`, the in-process
+    worker's: inputs staged local cache -> hinted peers (in hint order;
+    peers on this host are an in-process peek that shares the cached
+    tensor, peers on other hosts a socket fetch) -> store replica, then the
+    task fn and its outputs cached.  Index updates stream upstream
+    *before* the attempt's ``done`` (the Channel seam ordering contract).
+    With a recorder the thread carries the request context and records
+    the same spans as an in-process worker; they stay in this process's
+    span ring (only lifecycle events are forwarded);
   * a peer server: other hosts fetch cached payloads from a specific
     executor here (the paper's GridFTP-analogue cache-to-cache path);
   * a heartbeat thread.
@@ -46,6 +48,7 @@ stream of the process, so a tensor a peer server reads is finished.
 """
 from __future__ import annotations
 
+import dataclasses
 import socket
 import threading
 import time
@@ -57,8 +60,7 @@ from repro_torch.core.cache import EvictionPolicy
 from repro_torch.core.channel import BatchingChannel, ChannelClosed
 from repro_torch.core.index import ShardedIndex
 from repro_torch.core.objects import DataObject
-from repro_torch.core.runtime import (SHAPE_ONLY_PAYLOAD, CacheExecutorBase,
-                                      _wants_kwargs, on_device)
+from repro_torch.core.runtime import CacheExecutorBase, _InputLedger
 from repro_torch.device import resolve_device
 
 from .wire import SocketChannel, recv_msg, send_msg
@@ -200,20 +202,22 @@ class PeerServer(threading.Thread):
 
 
 # --------------------------------------------------------------------------
-# executor threads (structural twins of ExecutorWorker)
+# executor threads (ExecutorWorker's request path, a host's sources)
 # --------------------------------------------------------------------------
 
 class HostExecutor(CacheExecutorBase):
-    """One executor thread on a host: the shared cache/inbox surface from
-    `repro_torch.core.runtime.CacheExecutorBase` (one implementation, so
-    host and in-process cache semantics cannot drift apart) plus the
-    host-side execute/resolve loop.  Its cache holds tensors on the host's
-    device."""
+    """One executor thread on a host.  Its cache, inbox and request path
+    are `repro_torch.core.runtime.CacheExecutorBase`'s, the in-process
+    worker's own; this class says only where a peer's payload, a store
+    read and an admission's update go on a host.  Its cache holds tensors
+    on the host's device."""
 
     def __init__(self, eid: str, host: "FleetHost", cache_capacity: int,
                  policy: EvictionPolicy, seed: int) -> None:
         super().__init__(eid, cache_capacity, policy, seed, host.device)
         self.host = host
+        #: peer eid -> [host, port] of the attempt this thread runs
+        self._routes: dict[str, list] = {}
         self.thread = threading.Thread(target=self._run, daemon=True,
                                        name=f"executor-{eid}")
 
@@ -233,94 +237,38 @@ class HostExecutor(CacheExecutorBase):
             self._execute(msg)
             self.host.executor_ready(self)
 
-    def _admit(self, obj: DataObject, payload: Any) -> None:
-        added, removed = self.cache_admit(obj, payload)
-        self.host.send_update(self.eid, added, removed)
+    def _peer_payload(self, peer_id: str, oid: str) -> Optional[Any]:
+        """A same-host executor's cache is peeked (the tensor is shared);
+        another host's is fetched over the socket ``routes`` names."""
+        local = self.host.executors.get(peer_id)
+        if local is not None:
+            return local.cache_peek(oid)
+        if peer_id in self._routes:
+            h, p = self._routes[peer_id]
+            return self.host.peers.fetch((h, int(p)), peer_id, oid)
+        return None
 
-    def _resolve(self, oid: str, size: int, hints: dict[str, list],
-                 routes: dict[str, list], led: dict[str, int],
-                 tid: str = "") -> Any:
-        """Mirror of DiffusionRuntime._resolve: local cache -> hinted peers
-        in hint order (local peek for same-host executors, socket fetch for
-        remote ones) -> store replica.  Accounting fields match
-        core.runtime._InputLedger one-for-one.  The payload returned is on
-        the host's device: a fetched or store-read host tensor is copied
-        there once, and the cache keeps that copy."""
-        rec = self.host.recorder
-        payload = self.cache_lookup(oid)
-        if payload is not None:
-            led["cache_hits"] += 1
-            led["bytes_local"] += size
-            if rec is not None:
-                rec.emit("input", tid=tid, eid=self.eid, oid=oid,
-                         source="local", bytes=size)
-            return payload
-        led["cache_misses"] += 1
-        for peer_id in hints.get(oid, ()):
-            if peer_id == self.eid:
-                continue
-            local = self.host.executors.get(peer_id)
-            if local is not None:
-                payload = local.cache_peek(oid)
-            elif peer_id in routes:
-                h, p = routes[peer_id]
-                payload = self.host.peers.fetch((h, int(p)), peer_id, oid)
-            else:
-                continue
-            if payload is not None:
-                led["peer_hits"] += 1
-                led["bytes_cache_to_cache"] += size
-                if rec is not None:
-                    rec.emit("input", tid=tid, eid=self.eid, oid=oid,
-                             source="peer", bytes=size, peer=peer_id)
-                payload = on_device(payload, self.device)
-                self._admit(DataObject(oid, size), payload)
-                return payload
+    def _store_read(self, oid: str) -> tuple[DataObject, Any]:
         ent = self.host.store.get(oid)
         if ent is None:
             raise KeyError(oid)   # matches the central store's KeyError
-        obj, payload = ent
-        led["bytes_store"] += obj.size_bytes
-        if rec is not None:
-            rec.emit("input", tid=tid, eid=self.eid, oid=oid,
-                     source="store", bytes=obj.size_bytes)
-        # the one host-to-device copy of a store read; the cache keeps this
-        # same tensor (or refuses it, and then only this task uses it)
-        payload = on_device(payload, self.device)
-        self._admit(obj, payload)
-        return payload
+        return ent
+
+    def _announce(self, added: tuple[str, ...],
+                  removed: tuple[str, ...]) -> None:
+        self.host.send_update(self.eid, added, removed)
 
     def _execute(self, msg: dict) -> None:
-        led = {"bytes_local": 0, "bytes_cache_to_cache": 0, "bytes_store": 0,
-               "cache_hits": 0, "peer_hits": 0, "cache_misses": 0}
-        hints = msg.get("hints") or {}
-        routes = msg.get("routes") or {}
-        rec = self.host.recorder
-        tid = msg["tid"]
-        ok, err, result = True, None, None
-        try:
-            inputs = {oid: self._resolve(oid, size, hints, routes, led,
-                                         tid=tid)
-                      for oid, size in msg["inputs"]}
-            if rec is not None:
-                rec.emit("exec_start", tid=tid, eid=self.eid)
-            fn = self.host.task_fn
-            if fn is not None:
-                result = fn(**inputs) if _wants_kwargs(fn) else fn(inputs)
-            for oid, osize in msg["outputs"]:
-                # shape-only tasks: admit the wire-stable sentinel (mirrors
-                # DiffusionRuntime._execute) so downstream DAG reads of the
-                # produced object still count as cache hits
-                if fn is None:
-                    payload = SHAPE_ONLY_PAYLOAD
-                else:
-                    payload = result if len(msg["outputs"]) == 1 else result[oid]
-                self._admit(DataObject(oid, int(osize)), payload)
-        except Exception as e:  # noqa: BLE001 - task failure is data
-            ok, err = False, f"{type(e).__name__}: {e}"
-        if rec is not None:
-            rec.emit("exec_end", tid=tid, eid=self.eid, ok=ok)
-        self.host.send_done(self.eid, tid, ok, led, err)
+        # read by _peer_payload; this executor's thread runs one attempt
+        # at a time
+        self._routes = msg.get("routes") or {}
+        ok, result, acc = self.attempt(
+            self.host.recorder, msg["tid"], self.host.task_fn,
+            msg["inputs"],
+            [DataObject(oid, int(size)) for oid, size in msg["outputs"]],
+            msg.get("hints") or {})
+        err = None if ok else f"{type(result).__name__}: {result}"
+        self.host.send_done(self.eid, msg["tid"], ok, acc, err)
 
 
 # --------------------------------------------------------------------------
@@ -407,14 +355,14 @@ class FleetHost:
         except ChannelClosed:
             self._stop.set()
 
-    def send_done(self, eid: str, tid: str, ok: bool, led: dict,
+    def send_done(self, eid: str, tid: str, ok: bool, acc: _InputLedger,
                   err: Optional[str]) -> None:
         if self.metrics is not None:
             with self._led_lock:
                 tot = self._led_totals
-                tot["bytes_local"] += led["bytes_local"]
-                tot["bytes_c2c"] += led["bytes_cache_to_cache"]
-                tot["bytes_store"] += led["bytes_store"]
+                tot["bytes_local"] += acc.bytes_local
+                tot["bytes_c2c"] += acc.bytes_cache_to_cache
+                tot["bytes_store"] += acc.bytes_store
                 tot["tasks_done"] += 1
         try:
             # drained events ride (buffered) immediately before the flushed
@@ -423,7 +371,8 @@ class FleetHost:
             # is untouched because everything shares the one outbox buffer
             self._forward_events()
             self.out.send({"t": "done", "eid": eid, "tid": tid, "ok": ok,
-                           "ledger": led, "error": err}, flush=True)
+                           "ledger": dataclasses.asdict(acc),
+                           "error": err}, flush=True)
         except ChannelClosed:
             self._stop.set()
 

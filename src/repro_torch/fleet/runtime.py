@@ -463,14 +463,7 @@ class FleetRuntime(DiffusionRuntime):
         w = self.workers.get(msg["eid"])
         if t is None or w is None:
             return   # executor already deregistered; executor_left ruled
-        led = msg["ledger"]
-        acc = _InputLedger(
-            bytes_local=led["bytes_local"],
-            bytes_cache_to_cache=led["bytes_cache_to_cache"],
-            bytes_store=led["bytes_store"],
-            cache_hits=led["cache_hits"],
-            peer_hits=led["peer_hits"],
-            cache_misses=led["cache_misses"])
+        acc = _InputLedger(**msg["ledger"])
         if not msg["ok"]:
             t.result = RuntimeError(msg.get("error") or "remote failure")
         if t.start_time == 0.0:

@@ -4,6 +4,7 @@ sequence and hints (exactly), the same workload events, and -- in the
 runtime's deterministic regime -- the same per-task placement, input split
 and byte ledger."""
 import random
+import threading
 from collections import OrderedDict, deque
 from itertools import count
 
@@ -23,6 +24,8 @@ from repro.kernels.stacking import ops as jax_st_ops
 from repro_torch.core import objects as pt_objects
 from repro_torch.core.index import IndexUpdate as PtIndexUpdate
 from repro_torch.core.policies import DispatchPolicy as PtPolicy
+from repro_torch.core.cache import EvictionPolicy
+from repro_torch.core.runtime import CacheExecutorBase, _InputLedger
 from repro_torch.core.runtime import DiffusionRuntime as PtRuntime
 from repro_torch.core.scheduler import Dispatcher as PtDispatcher
 from repro_torch.core.scheduler import TaskQueue as PtTaskQueue
@@ -597,3 +600,108 @@ def test_runtime_release_while_a_task_runs_retries_it_once():
     assert t.attempts == jt.attempts
     rt.shutdown()
     jrt.shutdown()
+
+
+# --------------------------------------------------------------------------
+# The executor's one request path, through a minimal subclass
+# --------------------------------------------------------------------------
+
+class _StubExecutor(CacheExecutorBase):
+    """Peers are a dict (a peer absent from it cannot be reached, one that
+    maps to None misses); the store holds one 64-byte object."""
+
+    def __init__(self, peers: dict):
+        super().__init__("e1", 1 << 20, EvictionPolicy.LRU, 0,
+                         torch.device("cpu"))
+        self.peers = peers
+        self.calls: list[tuple[str, str]] = []
+        self.announced: list[tuple[tuple, tuple]] = []
+
+    def _peer_payload(self, peer_id, oid):
+        self.calls.append(("peer", peer_id))
+        return self.peers.get(peer_id)
+
+    def _store_read(self, oid):
+        self.calls.append(("store", oid))
+        return pt_objects.DataObject(oid, 64), torch.full((4,), 3.0)
+
+    def _announce(self, added, removed):
+        self.announced.append((added, removed))
+
+
+@pytest.mark.parametrize("recorded", [False, True])
+@pytest.mark.parametrize("source", ["local", "peer", "store"])
+def test_the_one_request_path_stages_local_then_hinted_peers_then_store(
+        source, recorded):
+    """``CacheExecutorBase.attempt``: a local hit first; else the hinted
+    peers in hint order, skipping the executor itself and a peer it cannot
+    reach; else the store.  Each input is counted in the attempt's
+    ``_InputLedger`` and, with a recorder, in one ``input`` event; without
+    one the thread never carries a request context."""
+    from repro_torch import obs
+    from repro_torch.obs import recorder as recorder_mod
+
+    size = 48
+    peers = {"p_miss": None, "p_hit": torch.full((4,), 2.0),
+             "p_later": torch.full((4,), 5.0)}
+    if source == "store":
+        peers["p_hit"] = peers["p_later"] = None
+    ex = _StubExecutor(peers)
+    if source == "local":
+        ex.cache_admit(pt_objects.DataObject("x", size), torch.ones(4))
+    hints = {"x": ["e1", "p_gone", "p_miss", "p_hit", "p_later"]}
+    rec = obs.Recorder() if recorded else None
+    seen, out = [], {}
+
+    def fn(inputs):
+        seen.append((obs.request(), dict(vars(recorder_mod._REQUEST))))
+        return inputs["x"] * 10
+
+    def run():   # a fresh thread: its request context starts unset
+        out["r"] = ex.attempt(rec, "t0", fn, [("x", size)],
+                              [pt_objects.DataObject("y", 16)], hints)
+        out["after"] = obs.request()
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    ok, result, acc = out["r"]
+    want_x = {"local": 1.0, "peer": 2.0, "store": 3.0}[source]
+    assert ok and torch.equal(result, torch.full((4,), want_x * 10))
+    assert ex.cache_lookup("y") is result
+
+    peer_calls = [("peer", p) for p in ("p_gone", "p_miss", "p_hit")]
+    assert ex.calls == {"local": [], "peer": peer_calls,
+                        "store": peer_calls + [("peer", "p_later"),
+                                               ("store", "x")]}[source]
+    want = {"local": _InputLedger(bytes_local=size, cache_hits=1),
+            "peer": _InputLedger(bytes_cache_to_cache=size, peer_hits=1,
+                                 cache_misses=1),
+            "store": _InputLedger(bytes_store=64, cache_misses=1)}[source]
+    assert acc == want
+    # the staged input (unless it was local already) and the output are
+    # admitted, and each admission is announced
+    assert ex.announced == ([] if source == "local" else
+                            [(("x",), ())]) + [(("y",), ())]
+
+    assert out["after"] is None
+    if not recorded:
+        assert seen == [(None, {})]
+        return
+    assert seen == [((rec, "t0", "e1"), {"ctx": (rec, "t0", "e1")})]
+    inputs = [{k: e[k] for k in e if k != "t"} for e in rec.events()
+              if e["kind"] == "input"]
+    event = {"kind": "input", "tid": "t0", "eid": "e1", "oid": "x",
+             "source": source, "bytes": 64 if source == "store" else size}
+    if source == "peer":
+        event["peer"] = "p_hit"
+    assert inputs == [event]
+    assert [e["kind"] for e in rec.events()] == ["input", "exec_start",
+                                                 "exec_end"]
+    spans = {s["kind"]: s for s in rec.spans()}
+    assert sorted(spans) == (["fn", "store_copy"] if source == "store"
+                             else ["fn"])
+    assert spans["fn"]["ok"] is True and spans["fn"]["tid"] == "t0"
+    if source == "store":
+        assert spans["store_copy"]["bytes"] == 64
+        assert spans["store_copy"]["parent"] == "stage"
